@@ -1,35 +1,57 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--paced 2,4]
 
-Drives ``livetalking_tpu_torch`` on the card, at full Wav2Lip-256 width
-with random weights from seed 0, through the entry points a server uses:
+Drives ``livetalking_tpu_torch`` on the card with random weights from fixed
+seeds, through the entry points a server uses, at full width: Wav2Lip-256,
+and MuseTalk (U-Net (320, 640, 1280, 1280), the full sd-vae-ft-mse,
+Whisper-tiny) in bf16 at batch 16.
 
-  1. device  — ``nvidia-smi`` name and power limit; compute capability 9.0.
-  2. build   — every kernel under ``livetalking_tpu_torch/csrc`` with nvcc.
-  3. blend   — the paste-back kernel against its plain PyTorch version on
-               480x640 frames, a 240x256 bucket, B in {16, 128}, feather in
-               {0, 9}: at most 1 LSB apart, byte-identical outside the bbox;
-               kernel and plain times (CUDA events, median of 60 runs).
-  4. model   — the fp32 Wav2Lip step on the card (TF32 off) against the same
-               step on the CPU at B=2: at most 1 LSB; the bf16 serving step's
-               time at B=16 and B=128.
-  5. engine  — ``app.load_plugin_stack`` with ``--coalesce
-               --device_paste_back``, two sessions on numpy-made avatars,
-               text in, full frames out of the queue transport; every kernel
-               of the path must have launched, and the scheduler must have
-               resolved every request submitted.
+  1. device     — ``nvidia-smi`` name and power limit; compute capability 9.0.
+  2. build      — every kernel under ``livetalking_tpu_torch/csrc``, one nvcc
+                  per source, all at once.
+  3. blend      — the rect paste-back kernel against its plain version on
+                  480x640 frames, a 240x256 bucket, B in {16, 128}, feather in
+                  {0, 9}: at most 1 LSB apart, byte-identical outside the bbox.
+  4. blend_mask — the masked paste-back kernel against its plain version on
+                  the synthetic MuseTalk avatar's geometry (blurred ellipse
+                  masks in a 288x384 bucket), B in {16, 128}: the same bars.
+  5. attention  — the attention kernel against its plain version at every
+                  shape a MuseTalk step gives it, B=16, bf16 (atol 2e-2, and
+                  per element 2 bf16 ulps + 4e-3) and f32 (atol 2e-5); the
+                  T=1024 shapes also at the engine's B=64 and 128, and one
+                  T % 16 == 8 shape; beside it PyTorch's
+                  ``scaled_dot_product_attention`` as the yardstick only.
+  6. model      — the fp32 Wav2Lip step on the card (TF32 off) against the same
+                  step on the CPU at B=2: at most 1 LSB; the bf16 step's time.
+  7. musetalk model — the fp32 MuseTalk step at B=1 on the card (TF32 off)
+                  against the CPU: at most 1 LSB; the bf16 step's time at B=16
+                  with 17 attention launches per step; the batched Whisper
+                  encode's time at k=1 and k=2.
+  8. engine     — ``app.load_plugin_stack`` with ``--model wav2lip --coalesce
+                  --device_paste_back``, two sessions, text in, full frames out
+                  of the queue transport.
+  9. musetalk engine — the same with ``--model musetalk``, two sessions on
+                  avatars encoded by the port's VAE on the card.
+ 10. paced      — only with ``--paced``: MuseTalk sessions whose frames are
+                  taken at 25 fps, started 160 ms apart, with the shared
+                  Whisper feature coalescer and without it (with, without,
+                  without, with); speech frames/s, starved ticks, requests
+                  per super-batch and request latency of each run.
 
-Prints one line per phase, then a ``{"kernels": [...]}`` line, the
-``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. Any failed
-check raises and the script exits non-zero without that line; without a
-CUDA device it exits 1 at once.
+In each engine phase every kernel count is set to 0 just before the
+sessions start and read after: every kernel of the path must have launched.
+Kernel times are medians of 60 runs (CUDA events). Prints one line per
+phase, then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
+``{"ok": true, "device": {...}}``. Any failed check raises and the script
+exits non-zero without that line; without a CUDA device it exits 1 at once.
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import json
 import os
 import queue
@@ -39,28 +61,44 @@ import time
 
 import numpy as np
 
-# peak memory bandwidth (bytes/s) and fp32 rate outside the tensor cores
-# (FLOP/s), from NVIDIA's data sheets; first matching name wins
+# peak memory bandwidth (bytes/s), fp32 rate outside the tensor cores and
+# dense bf16 tensor-core rate (FLOP/s), from NVIDIA's data sheets; first
+# matching name wins
 PEAKS = [
-    ("H100 NVL", 3.9e12, 60e12),
-    ("H100 PCIe", 2.0e12, 51e12),
-    ("H200", 4.8e12, 67e12),
-    ("H100", 3.35e12, 67e12),  # SXM
+    ("H100 NVL", 3.9e12, 60e12, 835e12),
+    ("H100 PCIe", 2.0e12, 51e12, 756e12),
+    ("H200", 4.8e12, 67e12, 989e12),
+    ("H100", 3.35e12, 67e12, 989e12),  # SXM
 ]
+EXP_PER_SM_CLOCK = 16  # SFU exponentials per SM per clock
+NO_LIBRARY = "null (no single PyTorch call resizes per item into per-item boxes, blends and pastes)"
 
 S, H, W = 256, 480, 640
 BOX = (120, 360, 200, 440)  # 240x240 face box centred in a 480x640 frame
 TOL_LSB = 1
+ATOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_pallas_attention.py's bars
+# the bf16 tensor-core path is also held per element to 2 bf16 ulps of the
+# plain output plus 4e-3: one flipped rounding of a probability near 0.5
+# times |v| ~ 1 (the f32 sums differ in order); dropping one 8-key tile
+# moves T=1024 outputs by about 1e-2
+TC_ATOL, TC_ULPS = 4e-3, 2
+# (T, D, heads, launches per MuseTalk step): the U-Net's self-attention at its
+# four levels and the VAE decoder's mid-block
+ATTN_SHAPES = [(1024, 40, 8, 5), (256, 80, 8, 5), (64, 160, 8, 5), (16, 160, 8, 1),
+               (1024, 512, 1, 1)]
+# checked only: the super-batch sizes the engine runs (16 x buckets 4 and 8)
+# at the two T=1024 sites, and T % 16 == 8, where the last key tile is half
+ATTN_CHECK_ONLY = [(64, 8, 1024, 40), (128, 8, 1024, 40), (64, 1, 1024, 512),
+                   (128, 1, 1024, 512), (16, 8, 1016, 40)]
 
 
 def log(phase: str, **kw) -> None:
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kw.items()), flush=True)
 
 
-def smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=30, check=True)
+def smi(query: str) -> str:
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=30, check=True)
     return out.stdout.strip().splitlines()[0]
 
 
@@ -83,9 +121,13 @@ def cuda_ms(fn, warmup: int = 10, iters: int = 60) -> float:
     return float(np.median(times))
 
 
+def bound(t_bytes: float, t_ops: float) -> tuple:
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def make_avatar(plugin, avatar_id: str, n: int, seed: int, device: str):
-    """A 480x640 avatar drawn with numpy: smooth gradients plus noise, a
-    240x240 face box, face crops resized to 256 with torch."""
+    """A 480x640 Wav2Lip avatar drawn with numpy: smooth gradients plus
+    noise, a 240x240 face box, face crops resized to 256 with torch."""
     import torch
 
     rng = np.random.default_rng(seed)
@@ -153,16 +195,154 @@ def phase_blend(torch, blend, peak_bw: float, peak_f32: float) -> dict:
         hw = [(min(y2 - y1, Ho)) * (min(x2 - x1, Wo))
               for (y1, y2, x1, x2) in (boxes_np[i] for i in idxs.tolist())]
         nbytes = B * (3 * S * S + 16) + 2 * 3 * sum(hw)
-        nops = 59 * sum(hw)
-        t_bytes = nbytes / peak_bw * 1e3
-        t_ops = nops / peak_f32 * 1e3
-        rows[B] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        b_ms, b_by = bound(nbytes / peak_bw * 1e3, 59 * sum(hw) / peak_f32 * 1e3)
+        rows[B] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                    "bytes": nbytes}
         log("blend", B=B, bucket=f"{Ho}x{Wo}", kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-            bound_ms=f"{rows[B]['bound_ms']:.4f}", bound_by=rows[B]["bound_by"],
-            MB=f"{nbytes / 1e6:.1f}", library_ms="null", max_abs_err=max_err)
+            bound_ms=f"{b_ms:.4f}", bound_by=b_by, MB=f"{nbytes / 1e6:.1f}",
+            library_ms=NO_LIBRARY, max_abs_err=max_err)
     return {"max_abs_err": max_err, "rows": rows}
+
+
+def phase_blend_mask(torch, blend, synthetic, peak_bw: float, peak_f32: float) -> dict:
+    """The masked kernel on the synthetic MuseTalk avatar's geometry, with
+    the face box jittered per cycle index so items differ."""
+    rng = np.random.default_rng(3)
+    N = 8
+    a = synthetic.musetalk_avatar_arrays(n_frames=1, frame_hw=(H, W), seed=3)
+    (x1, y1, x2, y2), (xs, ys, xe, ye) = a["coords"][0], a["mask_coords"][0]
+    faces, crops, masks = [], [], []
+    for _ in range(N):
+        dx, dy = int(rng.integers(-20, 21)), int(rng.integers(-20, 21))
+        faces.append((x1 + dx, y1 + dy, x2 + dx, y2 + dy))
+        crops.append((xs + dx, ys + dy, xe + dx, ye + dy))
+        masks.append(a["masks"][0])
+    Ho, Wo = blend.bucket_shape([(b, d, a_, c) for (a_, b, c, d) in crops])
+    origins, scalars, mask_np = blend.prepare_masked_paste_data(faces, crops, masks, Ho, Wo, H, W)
+    frames = torch.from_numpy(rng.integers(0, 256, (N, H, W, 3), dtype=np.uint8)).cuda()
+    org, sc, mk = (torch.from_numpy(v).cuda() for v in (origins, scalars, mask_np))
+    fn = blend.make_masked_paste_fn(S, Ho, Wo, H, W)
+
+    max_err = 0
+    rows = {}
+    for B in (16, 128):
+        pred = torch.from_numpy(rng.integers(0, 256, (B, S, S, 3), dtype=np.uint8)).cuda()
+        idxs = torch.from_numpy(rng.integers(0, N, (B,)).astype(np.int32)).cuda()
+        got = fn(pred, frames, idxs, org, sc, mk)
+        want = blend.masked_paste_plain(pred, frames, idxs, org, sc, mk, S=S, Ho=Ho, Wo=Wo,
+                                        H=H, W=W)
+        torch.cuda.synchronize()
+        err = int((got.int() - want.int()).abs().max())
+        picked = frames.index_select(0, idxs)
+        outside = torch.ones((B, H, W), dtype=torch.bool, device="cuda")
+        for b, i in enumerate(idxs.tolist()):
+            fx1, fy1, fx2, fy2 = faces[i]
+            outside[b, fy1:fy2, fx1:fx2] = False
+        if err > TOL_LSB or not torch.equal(got[outside], picked[outside]):
+            raise AssertionError(f"blend_mask B={B}: max err {err} (tolerance {TOL_LSB} LSB) "
+                                 "or pixels outside the face bbox changed")
+        max_err = max(max_err, err)
+
+        buf_k = frames.index_select(0, idxs)
+        buf_p = buf_k.clone()
+        ms = cuda_ms(lambda: blend.blend_masked_(pred, buf_k, idxs, org, sc, mk, Ho=Ho, Wo=Wo))
+        plain_ms = cuda_ms(lambda: blend._blend_masked_plain(pred, buf_p, idxs, org, sc, mk,
+                                                             Ho=Ho, Wo=Wo))
+        # least work for these inputs: each pred crop and index once; the
+        # mask inside the face bbox, the origin and the geometry once per
+        # distinct cycle index (items share them); read + write of every
+        # pixel whose mask is non-zero; about 60 fp32 operations per
+        # written pixel
+        uniq = sorted(set(idxs.tolist()))
+        h_w = sum(int(scalars[i, 0]) * int(scalars[i, 1]) for i in uniq)
+        nnz = [int((mask_np[i] > 0).sum()) for i in idxs.tolist()]
+        nbytes = B * (3 * S * S + 4) + len(uniq) * (8 + 16) + h_w + 2 * 3 * sum(nnz)
+        b_ms, b_by = bound(nbytes / peak_bw * 1e3, 60 * sum(nnz) / peak_f32 * 1e3)
+        rows[B] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                   "bytes": nbytes}
+        log("blend_mask", B=B, bucket=f"{Ho}x{Wo}", kernel_ms=f"{ms:.4f}",
+            plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b_ms:.4f}", bound_by=b_by,
+            MB=f"{nbytes / 1e6:.1f}", library_ms=NO_LIBRARY, max_abs_err=max_err)
+    return {"max_abs_err": max_err, "rows": rows}
+
+
+def check_attention(torch, attn, shape, gen, err: dict) -> tuple:
+    """The kernel against its plain version on one shape, f32 and bf16;
+    returns the f32 (q, k, v). The bf16 output must also lie within
+    ``TC_ULPS`` bf16 ulps of the plain one plus ``TC_ATOL`` per element."""
+    scale = shape[-1] ** -0.5
+    q32, k32, v32 = (torch.randn(shape, device="cuda", generator=gen) for _ in range(3))
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (t.to(dtype) for t in (q32, k32, v32))
+        got = attn.attention(q, k, v, scale).float()
+        want = attn.attention_plain(q, k, v, scale).float()
+        torch.cuda.synchronize()
+        d = (got - want).abs()
+        e = float(d.max())
+        name = str(dtype).split(".")[1]
+        if not e <= ATOL[name]:
+            raise AssertionError(f"attention {shape} {name}: max err {e} > {ATOL[name]}")
+        if dtype == torch.bfloat16:
+            # one bf16 ulp of w is 2**(e - 8) for w = m * 2**e, 0.5 <= m < 1
+            ulp = torch.ldexp(torch.ones_like(want), torch.frexp(want).exponent - 8)
+            over = float((d - TC_ULPS * ulp - TC_ATOL).max())
+            if over > 0:
+                raise AssertionError(f"attention {shape} bf16: an error exceeds {TC_ULPS} "
+                                     f"ulps + {TC_ATOL} by {over}")
+            err["bf16_over_bar"] = max(err.get("bf16_over_bar", -1.0), over)
+        err[name] = max(err[name], e)
+    return q32, k32, v32
+
+
+def phase_attention(torch, attn, peak_bw: float, peak_bf16: float, exp_rate: float) -> dict:
+    """Every self-attention shape of a MuseTalk step at B=16, timed; the
+    engine's larger super-batches and a half last key tile, checked only.
+    The step figures weight each shape by its launches per step (17 in all)."""
+    from torch.nn import functional as F
+
+    B = 16
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    err = {"float32": 0.0, "bfloat16": 0.0}
+    step = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+            "bytes": 0.0, "operations": 0.0}
+    for shape in ATTN_CHECK_ONLY:
+        check_attention(torch, attn, shape, gen, err)
+        torch.cuda.empty_cache()
+    log("attention", checked=[list(s) for s in ATTN_CHECK_ONLY],
+        max_abs_err_f32=err["float32"], max_abs_err_bf16=err["bfloat16"],
+        bf16_margin_to_bar=-err["bf16_over_bar"])
+    shapes = []
+    for T, D, heads, per_step in ATTN_SHAPES:
+        shape = (B, heads, T, D)
+        scale = D ** -0.5
+        q32, k32, v32 = check_attention(torch, attn, shape, gen, err)
+        q, k, v = (t.to(torch.bfloat16) for t in (q32, k32, v32))
+        ms = cuda_ms(lambda: attn.attention(q, k, v, scale))
+        plain_ms = cuda_ms(lambda: attn.attention_plain(q, k, v, scale))
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
+        nbytes = 4 * B * heads * T * D * 2
+        t_bytes = nbytes / peak_bw * 1e3
+        t_mma = 4 * B * heads * T * T * D / peak_bf16 * 1e3
+        t_exp = B * heads * T * T / exp_rate * 1e3
+        b_ms, b_by = bound(t_bytes, max(t_mma, t_exp))
+        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
+                         ("library_ms", lib_ms)):
+            step[key] += per_step * val
+        step["bytes" if b_by == "bytes" else "operations"] += per_step * b_ms
+        shapes.append({"shape": shape, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                       "bound_ms": b_ms, "bound_by": b_by})
+        log("attention", shape=f"{B}x{heads}x{T}x{D}", per_step=per_step, kernel_ms=f"{ms:.4f}",
+            plain_ms=f"{plain_ms:.4f}", library_ms=f"{lib_ms:.4f}", bound_ms=f"{b_ms:.5f}",
+            bound_by=b_by, bytes_ms=f"{t_bytes:.5f}", mma_ms=f"{t_mma:.5f}",
+            exp_ms=f"{t_exp:.5f}")
+    step["bound_by"] = "bytes" if step["bytes"] > step["operations"] else "operations"
+    log("attention", per_musetalk_step="17 launches", kernel_ms=f"{step['ms']:.4f}",
+        plain_ms=f"{step['plain_ms']:.4f}", library_ms=f"{step['library_ms']:.4f}",
+        bound_ms=f"{step['bound_ms']:.4f}", bound_by=step["bound_by"],
+        max_abs_err_f32=err["float32"], max_abs_err_bf16=err["bfloat16"],
+        bf16_margin_to_bar=-err["bf16_over_bar"])
+    return {"max_abs_err": max(err["float32"], err["bfloat16"]), "step": step,
+            "shapes": shapes}
 
 
 def phase_model(torch, w2l) -> dict:
@@ -188,16 +368,185 @@ def phase_model(torch, w2l) -> dict:
         bf16_vs_fp32_max_lsb=int(bdiff.max()), bf16_vs_fp32_mean_lsb=f"{float(bdiff.mean()):.3f}")
     torch.backends.cudnn.allow_tf32 = True
 
-    out = {}
-    for B in (16, 128):
-        cyc = torch.from_numpy(rng.integers(0, 256, (32, S, S, 3), dtype=np.uint8)).cuda()
-        ix = torch.from_numpy(rng.integers(0, 32, (B,))).cuda()
-        m = torch.from_numpy(np.clip(rng.standard_normal((B, 80, 16)), -4, 4).astype(np.float32)).cuda()
-        step = w2l.make_infer_fn(B, S, torch.bfloat16)
-        ms = cuda_ms(lambda: step(bf_net, cyc, ix, m), warmup=3, iters=20)
-        out[B] = ms
-        log("model", B=B, dtype="bfloat16", step_ms=f"{ms:.3f}", inferfps=f"{B / ms * 1e3:.1f}")
-    return out
+    B = 16
+    cyc = torch.from_numpy(rng.integers(0, 256, (32, S, S, 3), dtype=np.uint8)).cuda()
+    ix = torch.from_numpy(rng.integers(0, 32, (B,))).cuda()
+    m = torch.from_numpy(np.clip(rng.standard_normal((B, 80, 16)), -4, 4).astype(np.float32)).cuda()
+    step = w2l.make_infer_fn(B, S, torch.bfloat16)
+    ms = cuda_ms(lambda: step(bf_net, cyc, ix, m), warmup=3, iters=20)
+    log("model", B=B, dtype="bfloat16", step_ms=f"{ms:.3f}", inferfps=f"{B / ms * 1e3:.1f}")
+    return {"step_ms": ms}
+
+
+def profile_step(torch, run, steps: int, step_ms: float) -> None:
+    """Device time of ``steps`` runs by kernel (torch.profiler, kernel
+    events only), the top entries, and the kernels' busy share of the step
+    time ``step_ms`` measured without the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            run()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3 / steps, e.count // steps)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    total = sum(r[1] for r in rows)
+    log("profile", steps=steps, kernel_ms_per_step=f"{total:.3f}", step_ms=f"{step_ms:.3f}",
+        device_busy_share=f"{total / step_ms:.3f}")
+    for key, t, n in rows[:12]:
+        log("profile", kernel=json.dumps(key[:90]), ms_per_step=f"{t:.3f}",
+            share=f"{t / max(total, 1e-9):.3f}", calls_per_step=n)
+
+
+def phase_musetalk_model(torch, muse, mt, attn, wf) -> dict:
+    from livetalking_tpu_torch.config import default_opt
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(4)
+    lat = torch.from_numpy(rng.standard_normal((4, 32, 32, 8)).astype(np.float32))
+    idxs = torch.tensor([2], dtype=torch.int32)
+    feats = torch.from_numpy(rng.standard_normal((1, 50, 384)).astype(np.float32))
+    t0 = time.time()
+    cpu = muse.load_model(default_opt(model="musetalk", dtype="float32", device="cpu"))
+    want = mt.make_infer_fn(cpu["unet_cfg"], 1, dtype=torch.float32)(
+        cpu["unet_params"], cpu["vae_params"], lat, idxs, feats)
+    t_cpu = time.time() - t0
+    del cpu
+    gpu = muse.load_model(default_opt(model="musetalk", dtype="float32", device="cuda"))
+    got = mt.make_infer_fn(gpu["unet_cfg"], 1, dtype=torch.float32)(
+        gpu["unet_params"], gpu["vae_params"], lat.cuda(), idxs.cuda(), feats.cuda()).cpu()
+    del gpu
+    diff = (got.int() - want.int()).abs()
+    unsat = float(((want > 0) & (want < 255)).float().mean())
+    if int(diff.max()) > TOL_LSB:
+        raise AssertionError(f"fp32 MuseTalk step on the card differs from the CPU by "
+                             f"{int(diff.max())} LSB")
+    log("musetalk_model", fp32_card_vs_cpu_max_lsb=int(diff.max()),
+        unsaturated_share=f"{unsat:.3f}", cpu_build_and_step_s=f"{t_cpu:.1f}")
+    torch.backends.cudnn.allow_tf32 = True
+    torch.cuda.empty_cache()
+
+    model = muse.load_model(default_opt(model="musetalk", dtype="bfloat16", device="cuda"))
+    B = 16
+    cyc = torch.from_numpy(rng.standard_normal((32, 32, 32, 8)).astype(np.float32)).cuda()
+    ix = torch.from_numpy(rng.integers(0, 32, (B,)).astype(np.int32)).cuda()
+    wh = torch.from_numpy(rng.standard_normal((B, 50, 384)).astype(np.float32)).cuda()
+    step = mt.make_infer_fn(model["unet_cfg"], B, dtype=torch.bfloat16)
+    run = lambda: step(model["unet_params"], model["vae_params"], cyc, ix, wh)  # noqa: E731
+    before = attn.attention.launches
+    out = run()
+    torch.cuda.synchronize()
+    per_step = attn.attention.launches - before
+    if per_step != 17 or tuple(out.shape) != (B, S, S, 3) or out.dtype != torch.uint8:
+        raise AssertionError(f"bf16 step: {per_step} attention launches (want 17), "
+                             f"output {tuple(out.shape)} {out.dtype}")
+    ms = cuda_ms(run, warmup=3, iters=20)
+    log("musetalk_model", B=B, dtype="bfloat16", step_ms=f"{ms:.3f}",
+        inferfps=f"{B / ms * 1e3:.1f}", attention_launches_per_step=per_step)
+    profile_step(torch, run, steps=3, step_ms=ms)
+
+    enc = {}
+    for short in (False, True):
+        factory, n_samples = wf.make_batched_encode_factory(
+            model["whisper_params"], model["whisper_cfg"], batch_size=B, l=10, r=10,
+            short_window=short, device="cuda")
+        for k in (1, 2):
+            fn = factory(k)
+            wav = (0.1 * rng.standard_normal((k, n_samples))).astype(np.float32)
+            rows = fn(wav)
+            if tuple(rows.shape) != (k, B, 50, 384) or not bool(torch.isfinite(rows).all()):
+                raise AssertionError(f"whisper encode k={k}: {tuple(rows.shape)}")
+            enc[(short, k)] = cuda_ms(lambda: fn(wav), warmup=3, iters=20)
+            log("musetalk_model", whisper_encode_k=k, short_window=short,
+                ms=f"{enc[(short, k)]:.3f}")
+    del model
+    torch.cuda.empty_cache()
+    return {"step_ms": ms, "encode_ms": enc}
+
+
+@contextlib.contextmanager
+def open_sessions(app, session_manager, avatar_ids):
+    """One session per avatar, each with its render thread; stopped and
+    removed on exit."""
+    sids = []
+    try:
+        for avatar in avatar_ids:
+            sid = asyncio.run(session_manager.create_session({"avatar": avatar}))
+            sids.append(sid)
+            app.start_render_thread(sid)
+        yield [session_manager.get_session(s) for s in sids]
+    finally:
+        for sid in sids:
+            app.stop_render_thread(sid, timeout=15)
+            session_manager.remove_session(sid)
+
+
+def speech_classifier(app, avatar_ids, box):
+    """``is_speech(k, frame)``: the frame must match one of avatar k's frames
+    outside ``box`` (x1, y1, x2, y2) and the watermark rows; True when it
+    differs from that frame inside the box."""
+    x1, y1, x2, y2 = box
+    keep = np.ones((H, W), bool)
+    keep[y1:y2, x1:x2] = False
+    keep[:32] = False  # the watermark
+    by_outside = [{c[keep].tobytes(): c for c in app.global_avatars[a]["frame_list_cycle"]}
+                  for a in avatar_ids]
+
+    def is_speech(k: int, f: np.ndarray) -> bool:
+        if f.shape != (H, W, 3) or f.dtype != np.uint8:
+            raise AssertionError(f"session {k}: frame {f.shape} {f.dtype}")
+        idle = by_outside[k].get(f[keep].tobytes())
+        if idle is None:
+            raise AssertionError(f"session {k}: a frame matches no avatar frame "
+                                 "outside the face box")
+        return not np.array_equal(idle[y1:y2, x1:x2], f[y1:y2, x1:x2])
+
+    return is_speech
+
+
+def drive_sessions(app, session_manager, plugin, avatar_ids, box, watch) -> dict:
+    """Two free-running sessions, text in, full frames out. Runs until both
+    said at least 32 speech frames, stopped speaking, and the plugin's
+    shared scheduler (made by the first session) resolved every request.
+    ``watch()`` is read after."""
+    is_speech = speech_classifier(app, avatar_ids, box)
+    with open_sessions(app, session_manager, avatar_ids) as sessions:
+        sched = plugin._shared["scheduler"]
+        for k, s in enumerate(sessions):
+            s.put_msg_txt(f"session {k} reads a sentence long enough for many batches of frames.")
+        speech, frames = [0, 0], [0, 0]
+        t_first, t_last = [None, None], [None, None]
+        deadline = time.time() + 240
+        while time.time() < deadline:
+            if (min(speech) >= 32 and not any(s.is_speaking() for s in sessions)
+                    and sched.requests_run == sched.requests_submitted):
+                break
+            for k, s in enumerate(sessions):
+                try:
+                    f = s.output.video_queue.get(timeout=0.01)
+                except queue.Empty:
+                    continue
+                frames[k] += 1
+                if is_speech(k, f):
+                    speech[k] += 1
+                    t_first[k] = t_first[k] or time.time()
+                    t_last[k] = time.time()
+        counts = watch()
+    if min(speech) < 32:
+        raise AssertionError(f"speech frames per session {speech} < 32 within the time limit")
+    if sched.requests_run != sched.requests_submitted or sched.requests_run == 0:
+        raise AssertionError(f"scheduler resolved {sched.requests_run} of "
+                             f"{sched.requests_submitted} requests submitted")
+    lat = np.asarray(sched.latency_s) * 1e3
+    return {"speech": speech, "frames": frames, "counts": counts, "sched": sched,
+            "fps": [speech[k] / max(t_last[k] - t_first[k], 1e-9) for k in range(2)],
+            "latency_p50_ms": float(np.percentile(lat, 50)),
+            "mean_coalesced": float(np.mean(sched.batch_sizes))}
 
 
 def phase_engine(torch, app, plugin, blend, session_manager) -> dict:
@@ -211,124 +560,243 @@ def phase_engine(torch, app, plugin, blend, session_manager) -> dict:
     t0 = time.time()
     app.load_plugin_stack(opt)
     log("engine", load_plugin_stack_s=f"{time.time() - t0:.2f}")
-
-    # the main path starts here: every kernel count from 0
-    blend.blend_rect_.launches = 0
-    sids = []
     try:
-        for avatar in ("smoke_a", "smoke_b"):
-            sid = asyncio.run(session_manager.create_session({"avatar": avatar}))
-            sids.append(sid)
-            app.start_render_thread(sid)
-        sessions = [session_manager.get_session(s) for s in sids]
-        sched = plugin._shared["scheduler"]
-        for k, s in enumerate(sessions):
-            s.put_msg_txt(f"session {k} reads a sentence long enough for many batches of frames.")
-
+        # the main path starts here: every kernel count from 0
+        blend.blend_rect_.launches = 0
         y1, y2, x1, x2 = BOX
-        keep = np.ones((H, W), bool)
-        keep[y1:y2, x1:x2] = False
-        keep[:32] = False  # the watermark
-        # each avatar frame by its pixels outside the bbox: every frame out
-        # of the queue must be one of them there, pasted or not
-        by_outside = []
-        for a in ("smoke_a", "smoke_b"):
-            cyc = app.global_avatars[a]["frame_list_cycle"]
-            by_outside.append({c[keep].tobytes(): c for c in cyc})
-        speech = [0, 0]
-        frames = [0, 0]
-        t_first = [None, None]
-        t_last = [None, None]
-        # read every frame until both utterances are over and every request
-        # submitted has been resolved
-        deadline = time.time() + 180
-        while time.time() < deadline:
-            if (min(speech) >= 32 and not any(s.is_speaking() for s in sessions)
-                    and sched.requests_run == sched.requests_submitted):
-                break
-            for k, s in enumerate(sessions):
-                try:
-                    f = s.output.video_queue.get(timeout=0.01)
-                except queue.Empty:
-                    continue
-                if f.shape != (H, W, 3) or f.dtype != np.uint8:
-                    raise AssertionError(f"session {k}: frame {f.shape} {f.dtype}")
-                frames[k] += 1
-                idle = by_outside[k].get(f[keep].tobytes())
-                if idle is None:
-                    raise AssertionError(f"session {k}: a frame matches no avatar frame outside the bbox")
-                if not np.array_equal(idle[y1:y2, x1:x2], f[y1:y2, x1:x2]):
-                    speech[k] += 1
-                    t_first[k] = t_first[k] or time.time()
-                    t_last[k] = time.time()
-        if min(speech) < 32:
-            raise AssertionError(f"speech frames per session {speech} < 32 within the time limit")
-        launches = blend.blend_rect_.launches
-        if sched.requests_run != sched.requests_submitted or sched.requests_run == 0:
-            raise AssertionError(f"scheduler resolved {sched.requests_run} of "
-                                 f"{sched.requests_submitted} requests submitted")
+        r = drive_sessions(app, session_manager, plugin, ("smoke_a", "smoke_b"),
+                           (x1, y1, x2, y2), lambda: {"blend": blend.blend_rect_.launches})
+        launches, sched = r["counts"]["blend"], r["sched"]
         if launches < sched.batches_run or sched.batches_run == 0:
             raise AssertionError(f"blend launches {launches} < scheduler batches {sched.batches_run}")
-        lat = np.asarray(sched.latency_s) * 1e3
-        fps = [speech[k] / max(t_last[k] - t_first[k], 1e-9) for k in range(2)]
-        log("engine", sessions=2, speech_frames=speech, frames=frames,
-            speech_fps_per_session=[f"{v:.1f}" for v in fps],
+        log("engine", sessions=2, speech_frames=r["speech"], frames=r["frames"],
+            speech_fps_per_session=[f"{v:.1f}" for v in r["fps"]],
             batches_run=sched.batches_run, requests_run=sched.requests_run,
             requests_submitted=sched.requests_submitted,
-            mean_coalesced=f"{np.mean(sched.batch_sizes):.2f}",
-            latency_p50_ms=f"{np.percentile(lat, 50):.1f}", blend_launches=launches)
+            mean_coalesced=f"{r['mean_coalesced']:.2f}",
+            latency_p50_ms=f"{r['latency_p50_ms']:.1f}", blend_launches=launches)
         return {"launches": launches}
     finally:
-        for sid in sids:
-            app.stop_render_thread(sid, timeout=15)
-            session_manager.remove_session(sid)
         plugin.reset_shared_scheduler()
 
 
-def main() -> int:
+def phase_musetalk_engine(torch, app, muse, blend, attn, synthetic, sd_vae,
+                          session_manager) -> dict:
+    from livetalking_tpu_torch.config import default_opt
+
+    # the avatars' latents come from the same VAE (seed 1) the server loads
+    vae = sd_vae.init_params(1, torch.bfloat16, "cuda")
+    boxes = []
+    for avatar_id, n, seed in (("smoke_ma", 8, 20), ("smoke_mb", 10, 21)):
+        a = synthetic.musetalk_avatar_arrays(n_frames=n, frame_hw=(H, W), seed=seed)
+        app.global_avatars[avatar_id] = muse.avatar_from_arrays(
+            avatar_id, a["frames"], a["faces"], a["coords"], a["mask_coords"], a["masks"],
+            vae, device="cuda")
+        boxes.append(a["mask_coords"][0])
+    del vae
+    opt = default_opt(model="musetalk", transport="queue", tts="dummy", coalesce=True,
+                      device_paste_back=True, batch_size=16, device="cuda",
+                      avatar_id="smoke_ma", max_session=2)
+    t0 = time.time()
+    app.load_plugin_stack(opt)
+    log("musetalk_engine", load_plugin_stack_s=f"{time.time() - t0:.2f}")
+    try:
+        # the main path starts here: every kernel count from 0
+        attn.attention.launches = 0
+        blend.blend_masked_.launches = 0
+        r = drive_sessions(app, session_manager, muse, ("smoke_ma", "smoke_mb"), boxes[0],
+                           lambda: {"attention": attn.attention.launches,
+                                    "blend_mask": blend.blend_masked_.launches})
+        fc, sched, c = muse._shared["feat_coalescer"], r["sched"], r["counts"]
+        if fc is None or fc.batches_run == 0:
+            raise AssertionError("the feature coalescer ran no batch")
+        if sched.batches_run == 0 or c["attention"] < 17 * sched.batches_run:
+            raise AssertionError(f"attention launches {c['attention']} < 17 x scheduler "
+                                 f"batches {sched.batches_run}")
+        if c["blend_mask"] < sched.batches_run:
+            raise AssertionError(f"masked blend launches {c['blend_mask']} < scheduler "
+                                 f"batches {sched.batches_run}")
+        log("musetalk_engine", sessions=2, speech_frames=r["speech"], frames=r["frames"],
+            speech_fps_per_session=[f"{v:.1f}" for v in r["fps"]],
+            batches_run=sched.batches_run, requests_run=sched.requests_run,
+            requests_submitted=sched.requests_submitted,
+            mean_coalesced=f"{r['mean_coalesced']:.2f}",
+            latency_p50_ms=f"{r['latency_p50_ms']:.1f}",
+            feature_batches=fc.batches_run, feature_requests=fc.requests_run,
+            attention_launches=c["attention"], blend_mask_launches=c["blend_mask"])
+        return c
+    finally:
+        muse.reset_shared_scheduler()
+
+
+def drive_paced(app, session_manager, plugin, avatar_ids, box, stagger_s: float) -> dict:
+    """Sessions whose viewers take one frame each per 1/25 s, as a paced
+    transport does; session k starts speaking ``k * stagger_s`` after the
+    first. Counts, per session, the speech frames, their rate from the
+    first to the last, and the ticks in between that found no frame
+    (starved). Every bucket of the shared scheduler is warm before speech."""
+    is_speech = speech_classifier(app, avatar_ids, box)
+    n = len(avatar_ids)
+    with open_sessions(app, session_manager, avatar_ids) as sessions:
+        sched = plugin._shared["scheduler"]
+        sched.prewarm((50, 384))
+        speech, empty = [0] * n, [[] for _ in range(n)]
+        first, last = [None] * n, [None] * n
+        said = [False] * n
+        t0 = time.perf_counter()
+        tick = 0
+        while time.perf_counter() - t0 < 120:
+            for k, s in enumerate(sessions):
+                if not said[k] and time.perf_counter() - t0 >= k * stagger_s:
+                    s.put_msg_txt(f"paced session {k} reads one sentence of about sixty chars.")
+                    said[k] = True
+            for k, s in enumerate(sessions):
+                try:
+                    f = s.output.video_queue.get_nowait()
+                except queue.Empty:
+                    empty[k].append(tick)
+                    continue
+                if is_speech(k, f):
+                    speech[k] += 1
+                    first[k] = tick if first[k] is None else first[k]
+                    last[k] = tick
+            if (all(said) and min(speech) >= 32 and not any(s.is_speaking() for s in sessions)
+                    and sched.requests_run == sched.requests_submitted):
+                break
+            tick += 1
+            time.sleep(max(0.0, t0 + tick / 25.0 - time.perf_counter()))
+    if min(speech) < 32:
+        raise AssertionError(f"paced: speech frames per session {speech} < 32")
+    lat = np.asarray(sched.latency_s) * 1e3
+    fc = plugin._shared.get("feat_coalescer")
+    return {
+        "fps": [25.0 * (speech[k] - 1) / max(last[k] - first[k], 1) for k in range(n)],
+        "starved": [sum(first[k] < t < last[k] for t in empty[k]) for k in range(n)],
+        "speech": speech, "batches": sched.batches_run, "requests": sched.requests_run,
+        "mean_coalesced": float(np.mean(sched.batch_sizes)),
+        "p50_ms": float(np.percentile(lat, 50)), "p90_ms": float(np.percentile(lat, 90)),
+        "feature_batches": None if fc is None else fc.batches_run,
+        "feature_requests": None if fc is None else fc.requests_run}
+
+
+def phase_paced_ab(torch, app, muse, synthetic, sd_vae, session_manager, counts) -> None:
+    """MuseTalk sessions paced at 25 fps, with the shared Whisper feature
+    coalescer and without it (each session encodes alone, as without
+    --coalesce), in the order with, without, without, with, at each session
+    count in ``counts``."""
+    from livetalking_tpu_torch.config import default_opt
+
+    vae = sd_vae.init_params(1, torch.bfloat16, "cuda")
+    ids, box = [], None
+    for k in range(max(counts)):
+        a = synthetic.musetalk_avatar_arrays(n_frames=8, frame_hw=(H, W), seed=30 + k)
+        app.global_avatars[f"paced_{k}"] = muse.avatar_from_arrays(
+            f"paced_{k}", a["frames"], a["faces"], a["coords"], a["mask_coords"], a["masks"],
+            vae, device="cuda")
+        ids.append(f"paced_{k}")
+        box = a["mask_coords"][0]
+    del vae
+    opt = default_opt(model="musetalk", transport="queue", tts="dummy", coalesce=True,
+                      device_paste_back=True, batch_size=16, device="cuda",
+                      avatar_id=ids[0], max_session=max(counts))
+    app.load_plugin_stack(opt)
+    shared_encoder = muse.get_shared_feature_coalescer
+    for n in counts:
+        for variant in ("coalescer", "alone", "alone", "coalescer"):
+            if variant == "alone":
+                muse.get_shared_feature_coalescer = lambda model, opt: None
+            try:
+                r = drive_paced(app, session_manager, muse, ids[:n], box, stagger_s=0.16)
+            finally:
+                muse.get_shared_feature_coalescer = shared_encoder
+                muse.reset_shared_scheduler()
+            log("paced", sessions=n, features=variant,
+                speech_fps=[f"{v:.2f}" for v in r["fps"]], starved_ticks=r["starved"],
+                speech_frames=r["speech"], batches=r["batches"], requests=r["requests"],
+                mean_coalesced=f"{r['mean_coalesced']:.2f}", latency_p50_ms=f"{r['p50_ms']:.1f}",
+                latency_p90_ms=f"{r['p90_ms']:.1f}", feature_batches=r["feature_batches"],
+                feature_requests=r["feature_requests"])
+
+
+def main(argv) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description="Smoke test of the PyTorch/CUDA port on one GPU.")
+    ap.add_argument("--paced", default="", metavar="N[,N...]",
+                    help="after the phases, run MuseTalk sessions paced at 25 fps with and "
+                         "without the shared feature coalescer at these session counts")
+    paced = [int(v) for v in ap.parse_args(argv).paced.split(",") if v]
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from livetalking_tpu_torch import app
+    from livetalking_tpu_torch.audio_features import whisper_features as wf
+    from livetalking_tpu_torch.avatars import musetalk_avatar as muse
     from livetalking_tpu_torch.avatars import wav2lip_avatar as plugin
+    from livetalking_tpu_torch.models import musetalk as mt
+    from livetalking_tpu_torch.models import sd_vae
     from livetalking_tpu_torch.models import wav2lip as w2l
-    from livetalking_tpu_torch.ops import _build, blend
+    from livetalking_tpu_torch.ops import _build, attention, blend
     from livetalking_tpu_torch.server.session_manager import session_manager
+    from livetalking_tpu_torch.utils import synthetic
 
     t_start = time.time()
-    card = smi_line()
+    card = smi("name,power.limit")
     name = torch.cuda.get_device_name(0)
     cc = torch.cuda.get_device_capability(0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_mhz = float(smi("clocks.max.sm").split()[0])
     print(card, flush=True)
     log("device", name=json.dumps(name), capability=cc, count=torch.cuda.device_count(),
-        torch=torch.__version__, cuda=torch.version.cuda)
+        sms=sms, max_sm_clock_mhz=clock_mhz, torch=torch.__version__, cuda=torch.version.cuda)
     if cc != (9, 0):
         raise AssertionError(f"compute capability {cc}, the kernels target sm_90a")
-    peaks = [(bw, f32) for key, bw, f32 in PEAKS if key in name]
+    peaks = [p[1:] for p in PEAKS if p[0] in name]
     if not peaks:
         raise AssertionError(f"no peak rates known for {name}")
-    peak_bw, peak_f32 = peaks[0]
+    peak_bw, peak_f32, peak_bf16 = peaks[0]
+    exp_rate = EXP_PER_SM_CLOCK * sms * clock_mhz * 1e6
+
+    def timed(phase, fn, *args):
+        t0 = time.time()
+        out = fn(*args)
+        log(phase, seconds=f"{time.time() - t0:.1f}")
+        return out
 
     t0 = time.time()
     libs = _build.build_all()
     log("build", seconds=f"{time.time() - t0:.2f}", libs=sorted(libs))
 
-    b = phase_blend(torch, blend, peak_bw, peak_f32)
-    log("kernels", blend=f"ok max_abs_err={b['max_abs_err']} tolerance={TOL_LSB}")
-    phase_model(torch, w2l)
-    e = phase_engine(torch, app, plugin, blend, session_manager)
+    b = timed("blend", phase_blend, torch, blend, peak_bw, peak_f32)
+    bm = timed("blend_mask", phase_blend_mask, torch, blend, synthetic, peak_bw, peak_f32)
+    at = timed("attention", phase_attention, torch, attention, peak_bw, peak_bf16, exp_rate)
+    timed("model", phase_model, torch, w2l)
+    timed("musetalk_model", phase_musetalk_model, torch, muse, mt, attention, wf)
+    e = timed("engine", phase_engine, torch, app, plugin, blend, session_manager)
+    me = timed("musetalk_engine", phase_musetalk_engine, torch, app, muse, blend, attention,
+               synthetic, sd_vae, session_manager)
+    if paced:
+        timed("paced", phase_paced_ab, torch, app, muse, synthetic, sd_vae, session_manager,
+              paced)
 
-    row = b["rows"][128]
-    kernels = [{
-        "name": "blend", "route": "cuda", "source": "livetalking_tpu_torch/csrc/blend.cu",
-        "replaces": "livetalking_tpu/ops/pallas_blend.py:116",
-        "launches": e["launches"], "max_abs_err": b["max_abs_err"],
-        "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-        "bound_by": row["bound_by"], "library_ms": None,
-    }]
+    def row(name, source, replaces, launches, err, r, library_ms):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": err, "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": library_ms}
+
+    src = "livetalking_tpu_torch/csrc/"
+    kernels = [
+        row("blend", src + "blend.cu", "livetalking_tpu/ops/pallas_blend.py:116",
+            e["launches"], b["max_abs_err"], b["rows"][128], None),
+        row("blend_mask", src + "blend.cu", "livetalking_tpu/ops/pallas_blend.py:141",
+            me["blend_mask"], bm["max_abs_err"], bm["rows"][128], None),
+        row("attention", src + "attention.cu", "livetalking_tpu/ops/pallas_attention.py:79",
+            me["attention"], at["max_abs_err"], at["step"], at["step"]["library_ms"]),
+    ]
     log("done", seconds=f"{time.time() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
@@ -338,4 +806,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

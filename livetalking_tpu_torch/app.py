@@ -95,7 +95,10 @@ def load_plugin_stack(options):
 
     mod = importlib.import_module(AVATAR_MODULES[opt.model])
     _load_avatar = mod.load_avatar
-    model = mod.load_model(opt.modelfile or f"{opt.models_dir}/wav2lip.pth", opt)
+    if opt.model == "wav2lip":
+        model = mod.load_model(opt.modelfile or f"{opt.models_dir}/wav2lip.pth", opt)
+    else:
+        model = mod.load_model(opt)
     mod.warm_up(opt.batch_size, model, 256)
     if opt.avatar_id not in global_avatars:
         global_avatars[opt.avatar_id] = _load_avatar(opt.avatar_id, opt.data_dir, opt.device)

@@ -11,6 +11,9 @@ livetalking_tpu/audio_features/base.py).
   - when the parent session plays custom choreography audio
     (``custom_audiotype > 1``), that stream takes priority;
   - ``warm_up`` pre-rolls ``l + r`` stride frames.
+
+``clamp_window_indices`` is the static window gather of the Whisper
+features (the reference's ``_get_sliced_feature`` indexing).
 """
 
 from __future__ import annotations
@@ -108,3 +111,25 @@ class BaseFeatureExtractor:
     def run_step(self) -> None:
         raise NotImplementedError
 
+
+
+def clamp_window_indices(
+    batch_size: int,
+    feat_len: int,
+    window: tuple,
+    start: int,
+    multiplier: float,
+) -> np.ndarray:
+    """Static clamp-to-edge index matrix for windowed feature slicing.
+
+    Row i holds the feature indices for video frame ``i + start``: the
+    range [center - window[0]*m, center + window[1]*m) with
+    center = (i+start)*m, clamped to [0, feat_len-1].
+    """
+    rows = []
+    for i in range(batch_size):
+        center = int((i + start) * multiplier)
+        lo = int(center - window[0] * multiplier)
+        hi = int(center + window[1] * multiplier)
+        rows.append(np.clip(np.arange(lo, hi), 0, feat_len - 1))
+    return np.stack(rows).astype(np.int32)

@@ -250,10 +250,12 @@ class LipReal(BaseAvatar):
         if use_paste and self._scheduler is None:
             dp = DevicePasteBack(np.stack(self.frame_list_cycle), self.coord_list_cycle,
                                  IMG_SIZE, device=model["device"])
-            if dp.available:
-                self._device_paste = dp
-            else:
-                logger.warning("device_paste_back: bbox bucket exceeds frame - host path")
+            if not dp.available:
+                fh, fw = self.frame_list_cycle[0].shape[:2]
+                raise SchedulerConfigError(
+                    f"device_paste_back: bbox bucket {dp.Wo}x{dp.Ho} exceeds the "
+                    f"{fw}x{fh} frame")
+            self._device_paste = dp
 
         self.asr = MelFeatures(opt, self)
         self.asr.warm_up()

@@ -4,8 +4,11 @@ livetalking_tpu/config.py).
 Same flag surface, defaults and precedence (CLI > YAML > built-in
 defaults) as the reference package, so launch scripts keep working, plus
 ``--device`` (default ``cuda``), the port's counterpart of
-``JAX_PLATFORMS``. Flags of families and features that later slices port
-(musetalk int8, Whisper windows, meshes, profiling) are accepted and have
+``JAX_PLATFORMS``. ``--model`` takes wav2lip and musetalk (bf16/f32, with
+``--whisper_short_window``). The musetalk int8 flags (``--vae_int8``,
+``--unet_int8``) raise when a musetalk model or session is built: that
+path is not ported yet, and nothing serves bf16 in its place. Flags of
+features that later slices port (meshes, profiling) are accepted and have
 no effect yet. ``customvideo_config`` JSON is post-parsed into
 ``opt.customopt``.
 """
@@ -32,7 +35,7 @@ def _declare_flags(parser: argparse.ArgumentParser) -> None:
 
     # avatar model
     add("--model", type=str, default="wav2lip",
-        help="avatar model: wav2lip (musetalk/ultralight/ernerf: ROADMAP.md)")
+        help="avatar model: wav2lip, musetalk (ultralight/ernerf: ROADMAP.md)")
     add("--avatar_id", type=str, default="wav2lip256_avatar1",
         help="avatar id in data/avatars")
     add("--batch_size", type=int, default=16, help="inference batch size")
@@ -85,8 +88,8 @@ def _declare_flags(parser: argparse.ArgumentParser) -> None:
              "(admit + log + flag in /api/admin/sessions), strict (reject "
              "with a clean error envelope), off")
     add("--feature_window_ms", type=float, default=0.0,
-        help="alignment window of the cross-session feature coalescer "
-             "(musetalk; not ported yet)")
+        help="alignment window of the cross-session Whisper feature "
+             "coalescer (musetalk --coalesce), in ms; 0 = none")
     add("--coalesce_window_ms", type=float, default=-1.0,
         help="idle-device session-alignment window for the coalescing "
              "scheduler, in ms. While the device is idle and a "
@@ -108,19 +111,23 @@ def _declare_flags(parser: argparse.ArgumentParser) -> None:
              "request latency at the cost of one batch of glass-to-glass "
              "latency. Depth 1 is the synchronous reference behavior")
     add("--vae_int8", action="store_true", default=False,
-        help="musetalk int8 VAE decoder (not ported yet)")
+        help="musetalk int8 VAE decoder: not ported yet, raises")
     add("--unet_int8", action="store_true", default=False,
-        help="musetalk int8 U-Net (not ported yet)")
+        help="musetalk int8 U-Net: not ported yet, raises")
     add("--attn_int8", type=int, default=1,
-        help="musetalk --unet_int8 transformer matmuls (not ported yet)")
+        help="musetalk --unet_int8 transformer matmuls (not ported yet; "
+             "read only with --unet_int8, which raises)")
     add("--vae_mid_int8", type=int, default=1,
-        help="musetalk --vae_int8 mid block (not ported yet)")
+        help="musetalk --vae_int8 mid block (not ported yet; read only "
+             "with --vae_int8, which raises)")
     add("--whisper_short_window", action="store_true", default=False,
-        help="musetalk Whisper rolling window (not ported yet)")
+        help="musetalk: encode the Whisper rolling window itself instead "
+             "of the 30 s zero-padded chunk (same mel values for the real "
+             "frames, ~20x fewer encoder positions)")
     add("--device_paste_back", action="store_true", default=False,
         help="composite predicted crops into full frames on the device "
-             "(ops/blend.py, the csrc/blend.cu kernel) instead of per-frame "
-             "host cv2")
+             "(ops/blend.py, the csrc/blend.cu kernels: rect for wav2lip, "
+             "masked for musetalk) instead of per-frame host cv2")
     add("--mesh", type=str, default="",
         help="device mesh spec (multi-GPU; not ported yet)")
     add("--profile_dir", type=str, default="",

@@ -100,10 +100,14 @@ class AvatarStore:
             self._cycles[avatar_id] = (offset, cycle.shape[0])
             self._device_buffer = torch.from_numpy(
                 np.concatenate(self._host_parts, axis=0)).to(self.device)
+            # a new dict, swapped in whole: a step running meanwhile reads
+            # ``aux`` without the lock and must see planes of one length
+            aux_dev = dict(self._aux_dev)
             for k, v in aux.items():
                 self._aux_parts.setdefault(k, []).append(np.asarray(v))
-                self._aux_dev[k] = torch.from_numpy(
+                aux_dev[k] = torch.from_numpy(
                     np.concatenate(self._aux_parts[k], axis=0)).to(self.device)
+            self._aux_dev = aux_dev
             return offset, cycle.shape[0]
 
     def lookup(self, avatar_id: str) -> Tuple[int, int]:
@@ -115,7 +119,8 @@ class AvatarStore:
 
     @property
     def aux(self) -> Dict[str, torch.Tensor]:
-        """Device-resident aux planes (same global indexing as buffer)."""
+        """Device-resident aux planes (same global indexing as buffer); each
+        ``add`` replaces the dict, so one read gives planes of one length."""
         return self._aux_dev
 
 

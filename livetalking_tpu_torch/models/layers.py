@@ -11,6 +11,10 @@
     ``hwio_to_torch_conv`` / ``hwio_to_torch_tconv`` invert that, so a
     folded reference tree loads into ``nn.Conv2d`` / ``nn.ConvTranspose2d``
     weights.
+  - ``linear_f32``, ``layer_norm_f32`` and ``gelu_exact`` are the Whisper
+    encoder's and the SD blocks' primitives on parameter dictionaries:
+    linear weights in PyTorch's (out, in) layout, norm gamma/beta under
+    ``g``/``b``.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 
 def _pair(v) -> Tuple[int, int]:
@@ -141,3 +146,27 @@ def fold_bn(
 def to_numpy(v) -> np.ndarray:
     """Tensor or array-like -> np.ndarray (checkpoint converters)."""
     return v.detach().cpu().numpy() if hasattr(v, "detach") else np.asarray(v)
+
+
+# ---------------------------------------------------------------------------
+# Whisper primitives (parameter dictionaries)
+# ---------------------------------------------------------------------------
+
+def linear_f32(p, x: torch.Tensor) -> torch.Tensor:
+    """``x @ w.T + b`` in ``x.dtype`` (the GEMM accumulates in f32)."""
+    b = p.get("b")
+    return F.linear(x, p["w"].to(x.dtype), None if b is None else b.to(x.dtype))
+
+
+def layer_norm_f32(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with f32 statistics, gamma/beta keys 'g'/'b'."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, unbiased=False, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["g"].float() + p["b"].float()).to(x.dtype)
+
+
+def gelu_exact(x: torch.Tensor) -> torch.Tensor:
+    """Non-approximate GELU in f32, output in ``x.dtype``."""
+    return F.gelu(x.float()).to(x.dtype)

@@ -1,0 +1,85 @@
+"""MuseTalk composite model: PE + single-step latent U-Net + VAE decode
+(ports livetalking_tpu/models/musetalk.py).
+
+Whisper feature chunks (B, 50, 384) get the interleaved sinusoidal
+positional encoding, the latent U-Net runs ONE denoise step at t=0 with the
+audio as cross-attention context over the 8-channel (masked || reference)
+avatar latents, and the VAE decodes the 4-channel prediction to a 256 px
+BGR uint8 face. The step runs gather -> PE add -> U-Net -> decode -> uint8
+BGR on the device: only B indices go up, and the faces stay there for the
+paste-back.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from livetalking_tpu_torch.models import sd_unet, sd_vae
+
+
+def positional_encoding_table(seq_len: int, d_model: int = 384) -> np.ndarray:
+    """Interleaved sin/cos positional encoding, (seq_len, d_model) f32."""
+    pe = np.zeros((seq_len, d_model), np.float32)
+    pos = np.arange(seq_len, dtype=np.float32)[:, None]
+    div = np.exp(np.arange(0, d_model, 2, dtype=np.float32) * (-math.log(10000.0) / d_model))
+    pe[:, 0::2] = np.sin(pos * div)
+    pe[:, 1::2] = np.cos(pos * div)
+    return pe
+
+
+def make_infer_fn(unet_cfg: sd_unet.UNetConfig, batch_size: int, ctx_len: int = 50,
+                  dtype: torch.dtype = torch.bfloat16):
+    """Build the device step:
+
+        (unet_params, vae_params, latent_cycle (N, 32, 32, 8) f32, idxs (B,),
+         whisper (B, ctx_len, 384) f32) -> (B, 256, 256, 3) uint8 BGR faces
+
+    on the tensors' device; the parameters must already be there in
+    ``dtype`` (``diffusion_blocks.prepare``)."""
+    pe_host = torch.from_numpy(positional_encoding_table(ctx_len, unet_cfg.cross_dim))
+    pe_dev = {}
+
+    @torch.inference_mode()
+    def step(unet_params, vae_params, latent_cycle, idxs, whisper):
+        if whisper.shape[0] != batch_size:
+            raise ValueError(f"step built for B={batch_size}, got {whisper.shape[0]} feature rows")
+        dev = latent_cycle.device
+        pe = pe_dev.get(dev)
+        if pe is None:
+            pe = pe_dev[dev] = pe_host.to(dev)
+        lat = latent_cycle.index_select(0, idxs.to(dev)).to(dtype)
+        ctx = (whisper.float() + pe).to(dtype)
+        t = torch.zeros((batch_size,), dtype=torch.float32, device=dev)
+        pred = sd_unet.apply(unet_params, unet_cfg, lat, t, ctx)   # (B, 32, 32, 4) f32
+        img = sd_vae.decode(vae_params, pred.to(dtype), dtype=dtype)  # (B, 256, 256, 3) RGB
+        u8 = (img * 255.0).round().clamp(0, 255).to(torch.uint8)
+        return u8.flip(-1).contiguous()  # RGB -> BGR
+
+    return step
+
+
+@torch.inference_mode()
+def encode_avatar_latents(vae_params, faces_bgr: np.ndarray, batch: int = 8,
+                          device="cpu", dtype: torch.dtype = torch.float32) -> np.ndarray:
+    """Per-frame (32, 32, 8) U-Net input latents of an avatar:
+    cat(masked-lower-half latents, reference latents).
+
+    faces_bgr: (N, 256, 256, 3) uint8. Returns (N, 32, 32, 8) float32."""
+    rgb = faces_bgr[..., ::-1].astype(np.float32) / 255.0
+    x = (rgb - 0.5) / 0.5  # [-1, 1]
+    half_mask = np.ones((256, 256, 1), np.float32)
+    half_mask[128:] = 0.0
+
+    out = []
+    for s in range(0, x.shape[0], batch):
+        chunk = x[s:s + batch]
+        ref = torch.from_numpy(np.ascontiguousarray(chunk)).to(device=device, dtype=dtype)
+        masked = torch.from_numpy(np.ascontiguousarray(chunk * half_mask)).to(device=device,
+                                                                              dtype=dtype)
+        lat_ref = sd_vae.encode(vae_params, ref)
+        lat_masked = sd_vae.encode(vae_params, masked)
+        out.append(torch.cat([lat_masked, lat_ref], dim=-1).float().cpu().numpy())
+    return np.concatenate(out, axis=0)

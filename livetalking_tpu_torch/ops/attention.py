@@ -1,0 +1,108 @@
+"""Dense non-causal attention for the SD-family self-attention sites
+(ports livetalking_tpu/ops/pallas_attention.py).
+
+MuseTalk's latent U-Net runs self-attention over T = H*W latent tokens
+(1024, 256, 64 and 16 at its four levels, 8 heads) and the VAE mid-blocks
+over 1024 tokens in one 512-wide head. ``attention`` is the wrapper of
+``csrc/attention.cu``: per (batch, head) the full score rows of a tile of
+query rows live in shared memory, so the softmax is exact. On CPU tensors
+it runs ``attention_plain``, the same arithmetic in plain PyTorch; on CUDA
+tensors it launches the kernel (counted in ``attention.launches``) or
+raises.
+
+Layout (B, H, T, D) for q, k, v and the output. Numerics as the reference:
+f32 scores and softmax, probabilities rounded to v's dtype, f32 sums for
+the product with v, output in v's dtype. The reference's TPU sizing (a
+T >= 512 gate, 128-lane head-dim padding) has no counterpart here: the
+kernel runs at every T and every D <= 512.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import threading
+
+import torch
+
+__all__ = ["attention", "attention_plain"]
+
+MAX_HEAD_DIM = 512
+_SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    sm_scale: float) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: (B, H, T, D) x3 -> (B, H, T, D)."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    a = (p / p.sum(dim=-1, keepdim=True)).to(v.dtype)
+    return torch.matmul(a.float(), v.float()).to(v.dtype)
+
+
+_launch_lock = threading.Lock()
+
+
+@functools.cache
+def _library():
+    from livetalking_tpu_torch.ops import _build
+
+    lib = _build.library("attention")
+    lib.attention_launch.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                                     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    lib.attention_launch.restype = ctypes.c_int
+    lib.attention_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.attention_smem_bytes.restype = ctypes.c_int
+    return lib
+
+
+def _check_kernel_args(q, k, v) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda":
+            raise ValueError(f"attention kernel: {name} is on {t.device}, not CUDA")
+        if t.device != q.device:
+            raise ValueError(f"attention kernel: {name} on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"attention kernel: {name} must be contiguous")
+        if t.dtype != q.dtype or t.dtype not in _DTYPES:
+            raise ValueError(f"attention kernel: dtypes q {q.dtype}, k {k.dtype}, v {v.dtype}; "
+                             "want one of float32, bfloat16")
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"attention kernel: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}; want one (B, H, T, D)")
+    B, H, T, D = q.shape
+    if not 0 < D <= MAX_HEAD_DIM or B * H > 65535:
+        raise ValueError(f"attention kernel: head dim {D} (at most {MAX_HEAD_DIM}) "
+                         f"or {B * H} batch*heads (at most 65535)")
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              sm_scale: float) -> torch.Tensor:
+    """Dense non-causal attention, (B, H, T, D) x3 -> (B, H, T, D).
+
+    The wrapper of ``csrc/attention.cu``. CPU tensors run
+    ``attention_plain``; CUDA tensors launch the kernel on the current
+    stream (counted in ``attention.launches``); anything else raises."""
+    if q.device.type == k.device.type == v.device.type == "cpu":
+        return attention_plain(q, k, v, sm_scale)
+    _check_kernel_args(q, k, v)
+    B, H, T, D = q.shape
+    lib = _library()
+    smem = lib.attention_smem_bytes(T, D, _DTYPES[q.dtype])
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"attention kernel: T={T}, D={D} needs {smem} bytes of shared "
+                         f"memory, more than {_SMEM_LIMIT}")
+    o = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = lib.attention_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                   B * H, T, D, float(sm_scale), _DTYPES[q.dtype],
+                                   torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"attention kernel launch failed: cudaError {err}")
+    with _launch_lock:
+        attention.launches += 1
+    return o
+
+
+attention.launches = 0

@@ -1,11 +1,15 @@
-"""Paste-back of the PyTorch port (ops/blend.py) against the JAX package's.
+"""Paste-back of the PyTorch port (ops/blend.py) against the JAX package's:
+the rect path (Wav2Lip) and the masked path (MuseTalk).
 
 On the CPU the wrapper of the CUDA kernel runs its plain PyTorch version.
 Checks: the plain version against the JAX XLA twin ``resize_paste_xla``
 (1 LSB, the JAX package's bar between its kernel and its twin), against
 cv2's INTER_LINEAR resize + rect paste (2 LSB: cv2 resizes in 11-bit fixed
 point), pixels outside the bbox byte-identical, ``bucket_shape`` equal.
-The kernel itself is checked against the plain version on the card by
+The masked path: its planes equal ``prepare_masked_paste_data``'s, and its
+plain version is within 1 LSB of ``make_masked_paste_fn`` run through the
+XLA twin and through the Pallas kernel in interpret mode, byte-identical
+outside the face bbox. The kernels themselves is checked against the plain version on the card by
 tests/test_torch_kernels.py (skipped without a CUDA device) and by
 chip_smoke.py.
 """
@@ -123,3 +127,96 @@ def test_wrapper_never_runs_plain_on_a_non_cpu_tensor():
                        torch.empty((2, 4), dtype=torch.int32, **meta), Ho=240, Wo=256)
     assert tb.blend_rect_.launches == before
 
+
+
+# -- masked path (MuseTalk) ---------------------------------------------------
+
+def _masked_inputs(seed, B=4, N=4, H=480, W=640):
+    """Face boxes jittered around the synthetic avatar's, crop boxes = face
+    box + 10%, masks: the blurred ellipse plus uint8 noise inside it."""
+    from livetalking_tpu_torch.utils import synthetic
+
+    rng = np.random.default_rng(seed)
+    a = synthetic.musetalk_avatar_arrays(n_frames=1, frame_hw=(H, W), seed=seed)
+    (x1, y1, x2, y2), (xs, ys, xe, ye) = a["coords"][0], a["mask_coords"][0]
+    faces, crops, masks = [], [], []
+    for _ in range(N):
+        dx, dy = (int(v) for v in rng.integers(-60, 61, 2))
+        faces.append((x1 + dx, y1 + dy, x2 + dx, y2 + dy))
+        crops.append((xs + dx, ys + dy, xe + dx, ye + dy))
+        noise = rng.integers(0, 40, a["masks"][0].shape)
+        masks.append(np.clip(a["masks"][0].astype(int) - noise, 0, 255).astype(np.uint8))
+    frames = rng.integers(0, 256, (N, H, W, 3), dtype=np.uint8)
+    pred = rng.integers(0, 256, (B, S, S, 3), dtype=np.uint8)
+    idxs = rng.integers(0, N, (B,)).astype(np.int32)
+    return faces, crops, masks, frames, pred, idxs
+
+
+def _bucket(crops):
+    return tb.bucket_shape([(ys, ye, xs, xe) for (xs, ys, xe, ye) in crops])
+
+
+@pytest.mark.parametrize("bgr", [False, True])
+def test_masked_planes_match_jax(bgr):
+    faces, crops, masks, frames, _, _ = _masked_inputs(10)
+    if bgr:  # masks as read back from PNG: BGR, and one of another size
+        masks = [cv2.cvtColor(m, cv2.COLOR_GRAY2BGR) for m in masks]
+        masks[1] = cv2.resize(masks[1], (100, 90))
+    Ho, Wo = _bucket(crops)
+    assert (Ho, Wo) == pb.bucket_shape([(ys, ye, xs, xe) for (xs, ys, xe, ye) in crops])
+    got = tb.prepare_masked_paste_data(faces, crops, masks, Ho, Wo, 480, 640)
+    want = pb.prepare_masked_paste_data(faces, crops, masks, Ho, Wo, 480, 640)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    with pytest.raises(ValueError):
+        tb.prepare_masked_paste_data(faces, crops, masks, Ho - 8, Wo, 480, 640)
+
+
+@pytest.mark.parametrize("jax_kw", [dict(use_pallas=False), dict(use_pallas=True, interpret=True)],
+                         ids=["xla_twin", "pallas_interpret"])
+def test_masked_plain_matches_jax(jax_kw):
+    faces, crops, masks, frames, pred, idxs = _masked_inputs(11)
+    H, W = frames.shape[1:3]
+    Ho, Wo = _bucket(crops)
+    planes = tb.prepare_masked_paste_data(faces, crops, masks, Ho, Wo, H, W)
+    before = tb.blend_masked_.launches
+    got = tb.make_masked_paste_fn(S, Ho, Wo, H, W)(
+        torch.from_numpy(pred), torch.from_numpy(frames), torch.from_numpy(idxs),
+        *(torch.from_numpy(p) for p in planes)).numpy()
+    assert tb.blend_masked_.launches == before  # CPU tensors: the plain version
+    want = np.asarray(pb.make_masked_paste_fn(S, Ho, Wo, H, W, **jax_kw)(
+        pred, frames, idxs, *planes))
+    assert got.shape == want.shape == (len(idxs), H, W, 3)
+    assert np.abs(got.astype(np.int32) - want.astype(np.int32)).max() <= 1
+    for b, i in enumerate(idxs):
+        x1, y1, x2, y2 = faces[i]
+        outside = np.ones((H, W), bool)
+        outside[y1:y2, x1:x2] = False
+        assert np.array_equal(got[b][outside], frames[i][outside])
+        assert not np.array_equal(got[b][y1:y2, x1:x2], frames[i][y1:y2, x1:x2])
+
+
+def test_masked_device_paste_back_on_cpu_matches_jax():
+    faces, crops, masks, frames, pred, idxs = _masked_inputs(12, B=2)
+    mine = tb.MaskedDevicePasteBack(frames, faces, crops, masks, S, device="cpu")
+    ref = pb.MaskedDevicePasteBack(frames, faces, crops, masks, S, use_pallas=False)
+    assert mine.available and (mine.Ho, mine.Wo) == (ref.Ho, ref.Wo)
+    got = mine.paste_batch(torch.from_numpy(pred), idxs)
+    want = ref.paste_batch(pred, idxs)
+    assert np.abs(got.astype(np.int32) - want.astype(np.int32)).max() <= 1
+
+
+def test_masked_wrapper_never_runs_plain_on_a_non_cpu_tensor():
+    before = tb.blend_masked_.launches
+    m = dict(device="meta")
+    args = [torch.empty((2, S, S, 3), dtype=torch.uint8, **m),
+            torch.empty((2, 480, 640, 3), dtype=torch.uint8, **m),
+            torch.empty((2,), dtype=torch.int32, **m), torch.empty((4, 2), dtype=torch.int32, **m),
+            torch.empty((4, 4), dtype=torch.int32, **m),
+            torch.empty((4, 288, 384), dtype=torch.uint8, **m)]
+    with pytest.raises(ValueError):
+        tb.blend_masked_(*args, Ho=288, Wo=384)
+    args[0] = torch.zeros((2, S, S, 3), dtype=torch.uint8)  # mixed devices
+    with pytest.raises(ValueError):
+        tb.blend_masked_(*args, Ho=288, Wo=384)
+    assert tb.blend_masked_.launches == before

@@ -94,6 +94,22 @@ def test_conflicting_session_config_is_rejected():
         plugin.reset_shared_scheduler()
 
 
+def test_device_paste_back_bucket_wider_than_frame_raises():
+    """A 100 px box rounds up to a 128 px wide bucket, wider than the
+    120 px frame: --device_paste_back raises instead of blending on the
+    host."""
+    model = plugin.load_model("", default_opt(dtype="float32", device="cpu"))
+    rng = np.random.default_rng(6)
+    frames = [rng.integers(0, 256, (200, 120, 3), dtype=np.uint8) for _ in range(2)]
+    faces = rng.integers(0, 256, (2, S, S, 3), dtype=np.uint8)
+    avatar = plugin.avatar_from_arrays("narrow", frames, faces, [(20, 120, 10, 110)] * 2,
+                                       device="cpu")
+    opt = default_opt(transport="queue", tts="dummy", batch_size=2, dtype="float32",
+                      device="cpu", device_paste_back=True, sessionid="narrow")
+    with pytest.raises(SchedulerConfigError, match="exceeds the 120x200 frame"):
+        registry.create("avatar", "wav2lip", opt=opt, model=model, avatar=avatar)
+
+
 # -- batch composition with a fake step -----------------------------------
 
 def _store(n=16):
@@ -222,6 +238,19 @@ def test_avatar_store_offsets_and_aux_planes():
         store.add("d", np.ones((2, 2), np.uint8), aux={"p": np.ones((3, 4))})
     with pytest.raises(ValueError):
         store.add("e", np.ones((2, 3), np.uint8), aux={"p": np.ones((2, 4))})
+
+
+def test_avatar_store_aux_read_stays_one_generation():
+    """A step reads ``store.aux`` once, without the lock, while a new
+    session may be adding its avatar: what it read must keep planes of one
+    length, so ``add`` swaps in a new dict instead of growing the old one
+    plane by plane."""
+    store = AvatarStore(item_shape=(2,), device="cpu")
+    store.add("a", np.ones((3, 2), np.uint8), aux={"p": np.zeros((3, 4)), "q": np.zeros(3)})
+    seen = store.aux
+    store.add("b", np.ones((2, 2), np.uint8), aux={"p": np.ones((2, 4)), "q": np.ones(2)})
+    assert [int(t.shape[0]) for t in seen.values()] == [3, 3]
+    assert [int(t.shape[0]) for t in store.aux.values()] == [5, 5]
 
 
 def test_bucket_and_window_flags():

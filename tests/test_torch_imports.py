@@ -8,7 +8,7 @@
     ``jax``) cannot be imported, every module on that path still imports.
   - ``--device cuda`` on a host without a CUDA device raises at startup,
     and a CUDA request to the paste-back raises instead of running the
-    plain version.
+    plain version; ``--model musetalk`` with an int8 flag raises.
 """
 
 import ast
@@ -86,7 +86,8 @@ def _smoke_path():
                 yield from (f"{m}.{n}" for n in names if f"{m}.{n}" in SOURCES)
 
     todo = list(targets(_imports(_tree("chip_smoke"))))
-    todo += [AVATAR_MODULES["wav2lip"], TTS_MODULES["dummy"], OUTPUT_MODULES["queue"]]
+    todo += [AVATAR_MODULES["wav2lip"], AVATAR_MODULES["musetalk"], TTS_MODULES["dummy"],
+             OUTPUT_MODULES["queue"]]
     seen = set()
     while todo:
         parts = todo.pop().split(".")
@@ -104,7 +105,11 @@ SMOKE_PATH = _smoke_path()
 def test_smoke_path_covers_the_serving_modules():
     for mod in ("app", "engine.scheduler", "ops.blend", "ops.mel", "models.wav2lip",
                 "avatars.wav2lip_avatar", "avatars.base_avatar", "tts.dummy", "streamout.local",
-                "server.session_manager", "audio_features.mel_features"):
+                "server.session_manager", "audio_features.mel_features",
+                "avatars.musetalk_avatar", "audio_features.whisper_features",
+                "engine.feature_coalescer", "models.musetalk", "models.sd_unet",
+                "models.sd_vae", "models.diffusion_blocks", "models.whisper_encoder",
+                "ops.attention", "ops.whisper_mel", "utils.synthetic"):
         assert f"{PKG}.{mod}" in SMOKE_PATH
     assert f"{PKG}.server.routes" not in SMOKE_PATH  # the HTTP server: aiohttp's
 
@@ -147,7 +152,10 @@ def test_load_plugin_stack_checks_device_and_model():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             app.load_plugin_stack(default_opt(device="cuda"))
     with pytest.raises(ValueError, match="ROADMAP"):
-        app.load_plugin_stack(default_opt(model="musetalk", device="cpu"))
+        app.load_plugin_stack(default_opt(model="ultralight", device="cpu"))
+    for flag in ("vae_int8", "unet_int8"):  # never bf16 in place of int8
+        with pytest.raises(ValueError, match="int8 MuseTalk is not ported yet"):
+            app.load_plugin_stack(default_opt(model="musetalk", device="cpu", **{flag: True}))
 
 
 def test_paste_back_cuda_request_raises_without_a_card():

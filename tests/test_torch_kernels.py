@@ -1,5 +1,6 @@
-"""The port's CUDA paths on the card: each kernel against its plain
-PyTorch version, and the scheduler's pinned device->host ring.
+"""The port's CUDA paths on the card: each kernel (rect and masked
+paste-back, attention) against its plain PyTorch version, and the
+scheduler's pinned device->host ring.
 
 Every test here needs a CUDA device and skips without one. The file
 imports nothing of JAX, so on a host without JAX it runs as
@@ -12,7 +13,7 @@ import pytest
 import torch
 
 from livetalking_tpu_torch.engine.scheduler import AvatarStore, BatchScheduler
-from livetalking_tpu_torch.ops import blend
+from livetalking_tpu_torch.ops import attention, blend
 
 S, H, W = 256, 480, 640
 
@@ -68,6 +69,84 @@ def test_blend_kernel_rejects_what_it_does_not_take(cuda):
         blend.blend_rect_(pred, out, boxes.cpu(), Ho=240, Wo=256)
     with pytest.raises(ValueError):
         blend.blend_rect_(pred, out, boxes, Ho=512, Wo=256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [16, 128])
+def test_masked_blend_kernel_matches_plain(cuda, B):
+    rng = np.random.default_rng(B)
+    N = 6
+    faces, crops, masks = [], [], []
+    for _ in range(N):
+        x1, y1 = int(rng.integers(60, 300)), int(rng.integers(40, 150))
+        h, w = int(rng.integers(150, 260)), int(rng.integers(150, 260))
+        my, mx = h // 10, w // 10
+        faces.append((x1, y1, x1 + w, y1 + h))
+        crops.append((x1 - mx, y1 - my, x1 + w + mx, y1 + h + my))
+        masks.append(rng.integers(0, 256, (h + 2 * my, w + 2 * mx), dtype=np.uint8))
+    Ho, Wo = blend.bucket_shape([(ys, ye, xs, xe) for (xs, ys, xe, ye) in crops])
+    planes = [torch.from_numpy(p).to(cuda)
+              for p in blend.prepare_masked_paste_data(faces, crops, masks, Ho, Wo, H, W)]
+    frames = torch.from_numpy(rng.integers(0, 256, (N, H, W, 3), dtype=np.uint8)).to(cuda)
+    pred = torch.from_numpy(rng.integers(0, 256, (B, S, S, 3), dtype=np.uint8)).to(cuda)
+    idxs = torch.from_numpy(rng.integers(0, N, (B,)).astype(np.int32)).to(cuda)
+    before = blend.blend_masked_.launches
+    got = blend.make_masked_paste_fn(S, Ho, Wo, H, W)(pred, frames, idxs, *planes)
+    want = blend.masked_paste_plain(pred, frames, idxs, *planes, S=S, Ho=Ho, Wo=Wo, H=H, W=W)
+    torch.cuda.synchronize()
+    assert blend.blend_masked_.launches == before + 1
+    assert int((got.int() - want.int()).abs().max()) <= 1
+    picked = frames.index_select(0, idxs)
+    for b, i in enumerate(idxs.tolist()):
+        x1, y1, x2, y2 = faces[i]
+        outside = torch.ones((H, W), dtype=torch.bool, device=cuda)
+        outside[y1:y2, x1:x2] = False
+        assert torch.equal(got[b][outside], picked[b][outside])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape", [(16, 8, 1024, 40), (16, 8, 256, 80), (16, 8, 64, 160),
+                                   (16, 8, 16, 160), (16, 1, 1024, 512), (2, 3, 77, 33),
+                                   (64, 8, 1024, 40), (128, 8, 1024, 40), (64, 1, 1024, 512),
+                                   (128, 1, 1024, 512), (16, 8, 1016, 40)])
+def test_attention_kernel_matches_plain(cuda, shape, dtype, atol):
+    """The reference's bars, at the step's shapes, the engine's super-batch
+    sizes (B=64, 128) and a half last key tile (T % 16 == 8). bf16 is also
+    held per element to 2 bf16 ulps of the plain output plus 4e-3 (one
+    flipped rounding of a probability near 0.5 times |v| ~ 1)."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(shape, device=cuda, generator=gen).to(dtype) for _ in range(3))
+    scale = shape[-1] ** -0.5
+    before = attention.attention.launches
+    got = attention.attention(q, k, v, scale)
+    want = attention.attention_plain(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert attention.attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    d = (got.float() - want.float()).abs()
+    assert float(d.max()) <= atol
+    if dtype == torch.bfloat16:
+        w = want.float()
+        ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w).exponent - 8)
+        assert bool((d <= 2 * ulp + 4e-3).all())
+
+
+@pytest.mark.cuda
+def test_attention_kernel_rejects_what_it_does_not_take(cuda):
+    q = torch.zeros((1, 2, 64, 32), device=cuda)
+    with pytest.raises(ValueError):
+        attention.attention(q, q.half(), q, 1.0)
+    with pytest.raises(ValueError):
+        attention.attention(q.transpose(2, 3), q, q, 1.0)
+    with pytest.raises(ValueError):
+        attention.attention(q, q.cpu(), q, 1.0)
+    big = torch.zeros((1, 1, 8, 1024), device=cuda)
+    with pytest.raises(ValueError):
+        attention.attention(big, big, big, 1.0)  # head dim above 512
+    long = torch.zeros((1, 1, 8192, 64), device=cuda)
+    with pytest.raises(ValueError):
+        attention.attention(long, long, long, 1.0)  # score rows beyond shared memory
 
 
 @pytest.mark.cuda
