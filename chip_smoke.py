@@ -6,7 +6,7 @@
 Drives ``livetalking_tpu_torch`` on the card with random weights from fixed
 seeds, through the entry points a server uses, at full width: Wav2Lip-256,
 and MuseTalk (U-Net (320, 640, 1280, 1280), the full sd-vae-ft-mse,
-Whisper-tiny) in bf16 at batch 16.
+Whisper-tiny) in bf16 and in W8A8 int8 at batch 16.
 
   1. device     — ``nvidia-smi`` name and power limit; compute capability 9.0.
   2. build      — every kernel under ``livetalking_tpu_torch/csrc``, one nvcc
@@ -23,18 +23,35 @@ Whisper-tiny) in bf16 at batch 16.
                   T=1024 shapes also at the engine's B=64 and 128, and one
                   T % 16 == 8 shape; beside it PyTorch's
                   ``scaled_dot_product_attention`` as the yardstick only.
-  6. model      — the fp32 Wav2Lip step on the card (TF32 off) against the same
+  6. conv_int8  — the int8 3x3 conv kernel against its plain version at every
+                  3x3 stride-1 int8 site of a B=16 MuseTalk int8 step (U-Net
+                  and unfused decoder, 80 launches): bf16 bit-equal; the
+                  residual epilogue; the bf16 twin (rtol = atol = 2e-2, and
+                  1 bf16 ulp on positive inputs); cuDNN's bf16 conv of each
+                  shape printed as context only.
+  7. gnq        — the fused GroupNorm-SiLU-quantize conv kernel against its
+                  plain version at every site of the fused B=16 decode (21
+                  launches), at tests/test_pallas_conv.py's bars.
+  8. model      — the fp32 Wav2Lip step on the card (TF32 off) against the same
                   step on the CPU at B=2: at most 1 LSB; the bf16 step's time.
-  7. musetalk model — the fp32 MuseTalk step at B=1 on the card (TF32 off)
+  9. musetalk model — the fp32 MuseTalk step at B=1 on the card (TF32 off)
                   against the CPU: at most 1 LSB; the bf16 step's time at B=16
                   with 17 attention launches per step; the batched Whisper
                   encode's time at k=1 and k=2.
-  8. engine     — ``app.load_plugin_stack`` with ``--model wav2lip --coalesce
+ 10. musetalk int8 model — the B=16 step with ``--vae_int8 --unet_int8``,
+                  calibrated on the synthetic avatar as a first session does,
+                  unfused (80 int8 conv launches) and with ``LT_FUSED_VAE=1``
+                  (59 + 21): fused vs unfused PSNR > 35 dB in the reference's
+                  setting and > 30 dB at the served shapes, int8 vs the bf16
+                  step >= 24 dB; step times of the three.
+ 11. engine     — ``app.load_plugin_stack`` with ``--model wav2lip --coalesce
                   --device_paste_back``, two sessions, text in, full frames out
                   of the queue transport.
-  9. musetalk engine — the same with ``--model musetalk``, two sessions on
+ 12. musetalk engine — the same with ``--model musetalk``, two sessions on
                   avatars encoded by the port's VAE on the card.
- 10. paced      — only with ``--paced``: MuseTalk sessions whose frames are
+ 13. musetalk int8 engine — the same with ``--vae_int8 --unet_int8`` and
+                  ``LT_FUSED_VAE=1``.
+ 14. paced      — only with ``--paced``: MuseTalk sessions whose frames are
                   taken at 25 fps, started 160 ms apart, with the shared
                   Whisper feature coalescer and without it (with, without,
                   without, with); speech frames/s, starved ticks, requests
@@ -51,6 +68,7 @@ exits non-zero without that line; without a CUDA device it exits 1 at once.
 from __future__ import annotations
 
 import asyncio
+import collections
 import contextlib
 import json
 import os
@@ -72,6 +90,10 @@ PEAKS = [
 ]
 EXP_PER_SM_CLOCK = 16  # SFU exponentials per SM per clock
 NO_LIBRARY = "null (no single PyTorch call resizes per item into per-item boxes, blends and pastes)"
+NO_INT8_CONV = "null (PyTorch has no int8 convolution on CUDA)"
+FUSED_REF_DB = 35.0  # tests/test_pallas_conv.py::test_fused_decode_matches_xla_path
+FUSED_SERVED_DB = 30.0  # fused vs unfused at the served shapes (phase_musetalk_int8_model)
+INT8_E2E_DB = 24.0  # tests/test_int8_quality.py's end-to-end bar
 
 S, H, W = 256, 480, 640
 BOX = (120, 360, 200, 440)  # 240x240 face box centred in a 480x640 frame
@@ -345,6 +367,367 @@ def phase_attention(torch, attn, peak_bw: float, peak_bf16: float, exp_rate: flo
             "shapes": shapes}
 
 
+def unet_conv_sites(sd_unet, cfg, px: int = 32) -> dict:
+    """{(H, C, O): launches per step} of the U-Net's 3x3 stride-1 int8
+    convs at latent size ``px`` (conv_in's 8 channels padded to 64)."""
+    sites = collections.Counter()
+    sites[(px, -(-cfg.in_channels // 64) * 64, cfg.block_out[0])] += 1  # conv_in
+    h = px
+    for blk in sd_unet._down_plan(cfg):
+        for cin in blk["res_ins"]:
+            sites[(h, cin, blk["out"])] += 1
+            sites[(h, blk["out"], blk["out"])] += 1
+        h //= 2 if blk["down"] else 1
+    mid = cfg.block_out[-1]
+    sites[(h, mid, mid)] += 4
+    for blk in sd_unet._up_plan(cfg):
+        for cin in blk["res_ins"]:
+            sites[(h, cin, blk["out"])] += 1
+            sites[(h, blk["out"], blk["out"])] += 1
+        if blk["up"]:
+            h *= 2
+            sites[(h, blk["out"], blk["out"])] += 1
+    sites[(h, cfg.block_out[0], cfg.out_channels)] += 1  # conv_out
+    return dict(sites)
+
+
+def vae_conv_sites(sd_vae, px: int = 32, fused: bool = False) -> tuple:
+    """The int8 decoder's 3x3 convs at latent size ``px`` (mid resnets in
+    int8, the final conv in bf16): ({(H, C, O): n} of kernel 4,
+    {(H, C, O, upsample, gn, residual): n} of kernel 5). With ``fused`` the
+    chain from block 0's upsampler to the end runs kernel 5."""
+    ch = list(reversed(sd_vae.BLOCK_CH))
+    k4, k5 = collections.Counter(), collections.Counter()
+    k4[(px, ch[0], ch[0])] += 4
+    cin, h = ch[0], px
+    for i, cout in enumerate(ch):
+        for j in range(3):
+            c = cin if j == 0 else cout
+            if fused and i > 0:
+                k5[(h, c, cout, False, True, False)] += 1
+                k5[(h, cout, cout, False, True, True)] += 1
+            else:
+                k4[(h, c, cout)] += 1
+                k4[(h, cout, cout)] += 1
+        cin = cout
+        if i < len(ch) - 1:
+            h *= 2
+            if fused:
+                k5[(h, cout, cout, True, False, False)] += 1
+            else:
+                k4[(h, cout, cout)] += 1
+    return dict(k4), dict(k5)
+
+
+def ulps_apart(torch, got, want) -> float:
+    """Largest |got - want| in bf16 ulps of ``want``."""
+    w = want.float()
+    ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w).exponent - 8)
+    return float(((got.float() - w).abs() / ulp).max())
+
+
+def phase_conv_int8(torch, conv, sd_unet, sd_vae, peak_bw: float, peak_int8: float) -> dict:
+    """Kernel 4 against its plain version at every 3x3 stride-1 int8 site
+    of a B=16 step (U-Net, and the int8 decoder through the unfused route:
+    80 launches), bf16 bit-equal; timed against its bound, with cuDNN's bf16
+    conv of the same shape beside it as context only. The bf16 twin and
+    the residual epilogue are checked at one VAE shape each."""
+    from torch.nn import functional as F
+
+    B = 16
+    k4, _ = vae_conv_sites(sd_vae)
+    sites = collections.Counter(unet_conv_sites(sd_unet, sd_unet.MUSETALK))
+    sites.update(k4)
+    if sum(sites.values()) != 80:
+        raise AssertionError(f"{sum(sites.values())} int8 3x3 sites per step, want 80")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    step = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "cudnn_bf16_ms": 0.0,
+            "bytes": 0.0, "operations": 0.0}
+    for (Hh, C, O), n in sorted(sites.items()):
+        xq = torch.randint(-127, 128, (B, Hh, Hh, C), device="cuda", generator=gen,
+                           dtype=torch.int8)
+        wq = torch.randint(-127, 128, (O, 3, 3, C), device="cuda", generator=gen,
+                           dtype=torch.int8)
+        scale = torch.rand(O, device="cuda", generator=gen) * 1.5e-4 + 5e-5
+        bias = torch.randn(O, device="cuda", generator=gen)
+        got = conv.conv3x3_q(xq, wq, scale, bias)
+        want = conv.conv3x3_q_plain(xq, wq, scale, bias)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"conv3x3_q {(B, Hh, Hh, C, O)}: {ulps_apart(torch, got, want)} "
+                                 "bf16 ulps from the plain version, want bit-equal")
+        ms = cuda_ms(lambda: conv.conv3x3_q(xq, wq, scale, bias), warmup=3, iters=20)
+        plain_ms = cuda_ms(lambda: conv.conv3x3_q_plain(xq, wq, scale, bias), warmup=1, iters=3)
+        xb = torch.randn((B, C, Hh, Hh), device="cuda", generator=gen, dtype=torch.bfloat16)
+        xb = xb.contiguous(memory_format=torch.channels_last)
+        wb = torch.randn((O, C, 3, 3), device="cuda", generator=gen, dtype=torch.bfloat16)
+        wb = wb.contiguous(memory_format=torch.channels_last)
+        bb = bias.to(torch.bfloat16)
+        cudnn_ms = cuda_ms(lambda: F.conv2d(xb, wb, bb, padding=1), warmup=3, iters=20)
+        M = B * Hh * Hh
+        nbytes = M * C + 9 * C * O + 8 * O + 2 * M * O
+        ops = 2 * M * 9 * C * O
+        b_ms, b_by = bound(nbytes / peak_bw * 1e3, ops / peak_int8 * 1e3)
+        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
+                         ("cudnn_bf16_ms", cudnn_ms)):
+            step[key] += n * val
+        step[b_by] += n * b_ms
+        log("conv_int8", shape=f"{B}x{Hh}x{Hh}x{C}->{O}", per_step=n, kernel_ms=f"{ms:.4f}",
+            plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b_ms:.5f}", bound_by=b_by,
+            share_of_bound=f"{b_ms / ms:.3f}", cudnn_bf16_ms=f"{cudnn_ms:.4f}", bit_equal=True)
+        del xq, wq, xb, wb, got, want
+        torch.cuda.empty_cache()
+
+    # the residual epilogue and the bf16 twin, at the 128 px 256-channel site
+    Hh, C, O = 128, 256, 256
+    xq = torch.randint(-127, 128, (B, Hh, Hh, C), device="cuda", generator=gen, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (O, 3, 3, C), device="cuda", generator=gen, dtype=torch.int8)
+    scale = torch.full((O,), 1e-4, device="cuda")
+    bias = torch.randn(O, device="cuda", generator=gen)
+    res = torch.randn((B, Hh, Hh, O), device="cuda", generator=gen, dtype=torch.bfloat16)
+    got = conv.conv3x3_q(xq, wq, scale, bias, residual=res)
+    want = conv.conv3x3_q_plain(xq, wq, scale, bias, residual=res)
+    # the bf16 twin: signed inputs at the reference's bars (rtol = atol =
+    # 2e-2), and positive inputs, where no sum cancels, within 1 bf16 ulp:
+    # its f32 sums run in another order than the plain conv's and may round
+    # the last bf16 bit the other way (with cancellation an ulp of the
+    # small result says nothing)
+    x = (torch.randn((B, Hh, Hh, C), device="cuda", generator=gen) * 0.3).to(torch.bfloat16)
+    w = (torch.randn((O, 3, 3, C), device="cuda", generator=gen) * 0.02).to(torch.bfloat16)
+    got_bf = conv.conv3x3_bf16(x, w, bias)
+    want_bf = conv.conv3x3_bf16_plain(x, w, bias)
+    torch.cuda.synchronize()
+    twin_err = float((got_bf.float() - want_bf.float()).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"conv3x3_q with residual: {ulps_apart(torch, got, want)} ulps apart")
+    over = float(((got_bf.float() - want_bf.float()).abs() - 2e-2
+                  - 2e-2 * want_bf.float().abs()).max())
+    xp, wp = x.abs(), w.abs()
+    twin_ulps = ulps_apart(torch, conv.conv3x3_bf16(xp, wp, bias.abs()),
+                           conv.conv3x3_bf16_plain(xp, wp, bias.abs()))
+    if over > 0 or twin_ulps > 1:
+        raise AssertionError(f"conv3x3_bf16: signed inputs {over} over rtol/atol 2e-2, "
+                             f"positive inputs {twin_ulps} bf16 ulps apart (bar 1)")
+    twin_ms = cuda_ms(lambda: conv.conv3x3_bf16(x, w, bias), warmup=3, iters=20)
+    log("conv_int8", residual_bit_equal=True, bf16_twin_max_abs_err=twin_err,
+        bf16_twin_positive_max_ulps=twin_ulps,
+        bf16_twin_ms=f"{twin_ms:.4f}", bf16_twin_shape=f"{B}x{Hh}x{Hh}x{C}->{O}")
+    step["bound_by"] = "bytes" if step["bytes"] > step["operations"] else "operations"
+    log("conv_int8", per_musetalk_int8_step="80 launches", kernel_ms=f"{step['ms']:.4f}",
+        plain_ms=f"{step['plain_ms']:.4f}", bound_ms=f"{step['bound_ms']:.4f}",
+        bound_by=step["bound_by"], cudnn_bf16_ms=f"{step['cudnn_bf16_ms']:.4f}",
+        library_ms=NO_INT8_CONV)
+    return {"max_abs_err": 0.0, "step": step}
+
+
+def phase_gnq(torch, conv, sd_vae, peak_bw: float, peak_f32: float, peak_int8: float) -> dict:
+    """Kernel 5 against its plain version at every chain site of a B=16
+    fused int8 decode (21 launches) at the reference test's bars: y within
+    atol max(2e-2, 4 max out_scale) + rtol 1e-2, the moments within rtol
+    1e-3 + atol 1e-2 H W; timed against its bound."""
+    B = 16
+    _, k5 = vae_conv_sites(sd_vae, fused=True)
+    if sum(k5.values()) != 21:
+        raise AssertionError(f"{sum(k5.values())} fused chain sites, want 21")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    step = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes": 0.0, "operations": 0.0}
+    worst = {"y": 0.0, "s": 0.0, "y_mismatch": 0}
+    for (Hh, C, O, up, gn, has_res), n in sorted(k5.items()):
+        Hs = Hh // 2 if up else Hh
+        x = torch.randn((B, Hs, Hs, C), device="cuda", generator=gen).to(torch.bfloat16)
+        gns = torch.rand((B, C), device="cuda", generator=gen) + 0.5 if gn else None
+        gnb = torch.randn((B, C), device="cuda", generator=gen) * 0.2 if gn else None
+        act = torch.tensor(0.011 if gn else 0.012, device="cuda")
+        wq = torch.randint(-127, 128, (O, 3, 3, C), device="cuda", generator=gen,
+                           dtype=torch.int8)
+        osc = torch.rand(O, device="cuda", generator=gen) * 1.5e-4 + 5e-5
+        bias = torch.randn(O, device="cuda", generator=gen) * 0.1
+        res = (torch.randn((B, Hh, Hh, O), device="cuda", generator=gen).to(torch.bfloat16)
+               if has_res else None)
+        args = (x, gns, gnb, act, wq, osc, bias, res)
+        y, s1, s2 = conv.conv3x3_gnq(*args, upsample=up)
+        yr, s1r, s2r = conv.conv3x3_gnq_plain(*args, upsample=up)
+        torch.cuda.synchronize()
+        atol = max(2e-2, 4 * float(osc.max()))
+        over_y = float(((y.float() - yr.float()).abs() - atol - 1e-2 * yr.float().abs()).max())
+        over_s = max(float(((a - b).abs() - 1e-2 * Hh * Hh - 1e-3 * b.abs()).max())
+                     for a, b in ((s1, s1r), (s2, s2r)))
+        mismatch = int((y != yr).sum())
+        if over_y > 0 or over_s > 0:
+            raise AssertionError(f"conv3x3_gnq {(B, Hh, C, O, up, gn, has_res)}: y over its bar "
+                                 f"by {over_y}, moments by {over_s}")
+        worst = {"y": max(worst["y"], float((y.float() - yr.float()).abs().max())),
+                 "s": max(worst["s"], over_s), "y_mismatch": worst["y_mismatch"] + mismatch}
+        ms = cuda_ms(lambda: conv.conv3x3_gnq(*args, upsample=up), warmup=3, iters=20)
+        plain_ms = cuda_ms(lambda: conv.conv3x3_gnq_plain(*args, upsample=up), warmup=1, iters=3)
+        M = B * Hh * Hh
+        n_in = B * Hs * Hs * C
+        nbytes = (2 * n_in + (8 * B * C if gn else 0) + 4 + 9 * C * O + 8 * O + 2 * M * O
+                  + (2 * M * O if has_res else 0) + 8 * B * O)
+        # int8 products on the tensor cores, then about 8 f32 operations per
+        # input element with GroupNorm + SiLU (2 + 4, quantize 2), 2 without
+        t_ops = (2 * M * 9 * C * O / peak_int8 + (8 if gn else 2) * n_in / peak_f32) * 1e3
+        b_ms, b_by = bound(nbytes / peak_bw * 1e3, t_ops)
+        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms)):
+            step[key] += n * val
+        step[b_by] += n * b_ms
+        log("gnq", shape=f"{B}x{Hh}x{Hh}x{C}->{O}", upsample=up, gn=gn, residual=has_res,
+            per_step=n, kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            bound_ms=f"{b_ms:.5f}", bound_by=b_by, share_of_bound=f"{b_ms / ms:.3f}",
+            y_max_abs_err=f"{float((y.float() - yr.float()).abs().max()):.3g}",
+            y_elements_differing=mismatch)
+        del args, x, res, y, yr
+        torch.cuda.empty_cache()
+    step["bound_by"] = "bytes" if step["bytes"] > step["operations"] else "operations"
+    log("gnq", per_fused_decode="21 launches", kernel_ms=f"{step['ms']:.4f}",
+        plain_ms=f"{step['plain_ms']:.4f}", bound_ms=f"{step['bound_ms']:.4f}",
+        bound_by=step["bound_by"], y_max_abs_err=worst["y"],
+        y_elements_differing=worst["y_mismatch"], library_ms=NO_INT8_CONV)
+    return {"max_abs_err": worst["y"], "step": step}
+
+
+def psnr_u8(a, b) -> float:
+    """PSNR in dB of two uint8 image batches (peak 255)."""
+    mse = float(((a.double() - b.double()) ** 2).mean())
+    return float(10.0 * np.log10(255.0 ** 2 / max(mse, 1e-12)))
+
+
+def psnr_unit(a, b) -> float:
+    """PSNR in dB of two image batches in [0, 1]."""
+    mse = float(((a.double() - b.double()) ** 2).mean())
+    return float(10.0 * np.log10(1.0 / max(mse, 1e-12)))
+
+
+def check_fused_decode(torch, sd_vae, vae_params) -> float:
+    """The reference's own check of the fused route
+    (tests/test_pallas_conv.py::test_fused_decode_matches_xla_path) on the
+    served decoder: every site int8 (no bf16 epilogue), calibrated on one
+    8x8 noise latent (numpy seed 4), the kernel-5 chain from the mid-block
+    output against the unfused route; f32 images, PSNR > 35 dB."""
+    z = np.random.default_rng(4).standard_normal((1, 8, 8, 4)).astype(np.float32)
+    z = torch.from_numpy(z * sd_vae.SCALING_FACTOR).cuda()
+    vq = sd_vae.calibrate_decoder(
+        vae_params, sd_vae.quantize_decoder(vae_params, bf16_epilogue=False), z)
+    with torch.inference_mode():
+        want = sd_vae.decode_int8(vq, z)  # LT_FUSED_VAE unset: unfused
+        got = sd_vae._decode_int8_fused(vq, sd_vae._decode_int8_mid(vq, z))
+    db = psnr_unit(got, want)
+    if not db > FUSED_REF_DB:
+        raise AssertionError(f"fused decode (reference setting) {db:.3f} dB from the "
+                             f"unfused route, want > {FUSED_REF_DB}")
+    return db
+
+
+def phase_musetalk_int8_model(torch, muse, mt, conv, attn, wf, synthetic, sd_vae) -> dict:
+    """The B=16 int8 step (both flags, the reference's int8 defaults) on
+    the synthetic avatar's latents, quantized and calibrated as a first
+    session does (``session_params``), with Whisper features from the
+    model's encoder: the unfused route (kernel 4 at all 80 int8 3x3 sites)
+    and the fused one (``LT_FUSED_VAE=1``: 59 kernel-4 and 21 kernel-5
+    launches). Fused against unfused: > 35 dB in the reference's own
+    setting (``check_fused_decode``), > 30 dB at the served shapes; int8
+    against the bf16 step >= 24 dB (tests/test_int8_quality.py's
+    end-to-end bar); step times of both routes beside the bf16 step's, on
+    the same inputs."""
+    from livetalking_tpu_torch.config import default_opt
+
+    B = 16
+    opt = default_opt(model="musetalk", dtype="bfloat16", device="cuda", vae_int8=True,
+                      unet_int8=True)
+    model = muse.load_model(opt)
+    a = synthetic.musetalk_avatar_arrays(n_frames=8, frame_hw=(H, W), seed=40)
+    avatar = muse.avatar_from_arrays("int8_model", a["frames"], a["faces"], a["coords"],
+                                     a["mask_coords"], a["masks"], model["vae_params"],
+                                     device="cuda")
+    lat = avatar["latent_cycle_device"]
+    os.environ.pop("LT_FUSED_VAE", None)
+    ref_db = check_fused_decode(torch, sd_vae, model["vae_params"])
+    t0 = time.time()
+    uq, vq = muse.session_params(model, opt, lat)
+    torch.cuda.synchronize()
+    t_cal = time.time() - t0
+    rng = np.random.default_rng(41)
+    factory, n_samples = wf.make_batched_encode_factory(
+        model["whisper_params"], model["whisper_cfg"], batch_size=B, l=10, r=10, device="cuda")
+    wav = (0.1 * rng.standard_normal((1, n_samples))).astype(np.float32)
+    feats = factory(1)(wav)[0]
+    ix = torch.from_numpy(rng.integers(0, lat.shape[0], (B,)).astype(np.int32)).cuda()
+
+    bf_step = mt.make_infer_fn(model["unet_cfg"], B, dtype=torch.bfloat16)
+    q_step = mt.make_infer_fn(model["unet_cfg"], B, dtype=torch.bfloat16, vae_int8=True,
+                              unet_int8=True)
+    runs = {
+        "bf16": lambda: bf_step(model["unet_params"], model["vae_params"], lat, ix, feats),
+        "int8": lambda: q_step(uq, vq, lat, ix, feats),
+    }
+    want_k4 = {"bf16": 0, "int8": 80, "int8_fused": 59}
+    want_k5 = {"bf16": 0, "int8": 0, "int8_fused": 21}
+    out, ms = {}, {}
+    for route in ("bf16", "int8", "int8_fused"):
+        run = runs["int8" if route == "int8_fused" else route]
+        os.environ["LT_FUSED_VAE"] = "1" if route == "int8_fused" else "0"
+        try:
+            before = (conv.conv3x3_q.launches, conv.conv3x3_gnq.launches,
+                      attn.attention.launches)
+            out[route] = run()
+            torch.cuda.synchronize()
+            k4, k5, at = (conv.conv3x3_q.launches - before[0],
+                          conv.conv3x3_gnq.launches - before[1],
+                          attn.attention.launches - before[2])
+            if (k4, k5, at) != (want_k4[route], want_k5[route], 17):
+                raise AssertionError(f"{route} step: {k4} conv3x3_q, {k5} conv3x3_gnq, {at} "
+                                     f"attention launches; want {want_k4[route]}, "
+                                     f"{want_k5[route]}, 17")
+            o = out[route]
+            if tuple(o.shape) != (B, S, S, 3) or o.dtype != torch.uint8:
+                raise AssertionError(f"{route} step: output {tuple(o.shape)} {o.dtype}")
+            ms[route] = cuda_ms(run, warmup=2, iters=10)
+        finally:
+            os.environ.pop("LT_FUSED_VAE", None)
+    log("musetalk_int8_model", B=B, calibrate_s=f"{t_cal:.2f}",
+        **{f"{r}_step_ms": f"{ms[r]:.3f}" for r in ms},
+        **{f"{r}_inferfps": f"{B / ms[r] * 1e3:.1f}" for r in ms},
+        conv3x3_q_per_step="80 unfused, 59 fused", conv3x3_gnq_per_step="0 unfused, 21 fused")
+    # the served decoder on what it was calibrated for: the avatar's
+    # reference-face latents of this batch, through both routes
+    zc = lat.index_select(0, ix)[..., 4:].contiguous()
+    dec = {}
+    with torch.inference_mode():
+        for fused in ("0", "1"):
+            os.environ["LT_FUSED_VAE"] = fused
+            dec[fused] = sd_vae.decode_int8(vq, zc)
+    os.environ.pop("LT_FUSED_VAE", None)
+    dec_db = psnr_unit(dec["1"], dec["0"])
+    fused_vs_unfused = psnr_u8(out["int8_fused"], out["int8"])
+    int8_vs_bf16 = psnr_u8(out["int8"], out["bf16"])
+    fused_vs_bf16 = psnr_u8(out["int8_fused"], out["bf16"])
+    log("musetalk_int8_model", psnr_fused_vs_unfused_reference_setting_db=f"{ref_db:.4f}",
+        psnr_fused_vs_unfused_avatar_latents_db=f"{dec_db:.4f}",
+        psnr_fused_vs_unfused_step_db=f"{fused_vs_unfused:.4f}",
+        psnr_int8_vs_bf16_db=f"{int8_vs_bf16:.4f}", psnr_fused_vs_bf16_db=f"{fused_vs_bf16:.4f}")
+    # the reference holds the routes to > 35 dB in its own setting only (8x8
+    # noise latents, checked above). At the served 32x32 latents they
+    # measured 33.5 dB on the avatar's latents and 34.1 dB on the step (H100
+    # 80GB HBM3, 700 W): each route quantizes a differently rounded
+    # activation (f32 against bf16), and every int8 level that flips
+    # carries on through the later convs. So the served shapes are held to
+    # 30 dB, 6 dB above the int8 vs bf16 bar
+    if not (dec_db > FUSED_SERVED_DB and fused_vs_unfused > FUSED_SERVED_DB
+            and int8_vs_bf16 >= INT8_E2E_DB and fused_vs_bf16 >= INT8_E2E_DB):
+        raise AssertionError(f"int8 quality: fused vs unfused {dec_db:.2f} dB on the avatar "
+                             f"latents, {fused_vs_unfused:.2f} dB on the step (bar > "
+                             f"{FUSED_SERVED_DB}); int8 vs bf16 {int8_vs_bf16:.2f}, fused vs "
+                             f"bf16 {fused_vs_bf16:.2f} dB (bar >= {INT8_E2E_DB})")
+    os.environ["LT_FUSED_VAE"] = "1"
+    try:
+        profile_step(torch, runs["int8"], steps=3, step_ms=ms["int8_fused"])
+    finally:
+        os.environ.pop("LT_FUSED_VAE", None)
+    del model, uq, vq, out
+    torch.cuda.empty_cache()
+    return ms
+
+
 def phase_model(torch, w2l) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -580,14 +963,19 @@ def phase_engine(torch, app, plugin, blend, session_manager) -> dict:
         plugin.reset_shared_scheduler()
 
 
-def phase_musetalk_engine(torch, app, muse, blend, attn, synthetic, sd_vae,
-                          session_manager) -> dict:
+def phase_musetalk_engine(torch, app, muse, blend, attn, conv, synthetic, sd_vae,
+                          session_manager, int8: bool = False) -> dict:
+    """Two coalesced MuseTalk sessions on avatars encoded on the card; with
+    ``int8``, ``--vae_int8 --unet_int8`` and ``LT_FUSED_VAE=1``: the first
+    session quantizes and calibrates, and every step runs 59 kernel-4 and
+    21 kernel-5 launches."""
     from livetalking_tpu_torch.config import default_opt
 
+    phase = "musetalk_int8_engine" if int8 else "musetalk_engine"
     # the avatars' latents come from the same VAE (seed 1) the server loads
     vae = sd_vae.init_params(1, torch.bfloat16, "cuda")
-    boxes = []
-    for avatar_id, n, seed in (("smoke_ma", 8, 20), ("smoke_mb", 10, 21)):
+    boxes, ids = [], (("smoke_qa", "smoke_qb") if int8 else ("smoke_ma", "smoke_mb"))
+    for avatar_id, n, seed in ((ids[0], 8, 20), (ids[1], 10, 21)):
         a = synthetic.musetalk_avatar_arrays(n_frames=n, frame_hw=(H, W), seed=seed)
         app.global_avatars[avatar_id] = muse.avatar_from_arrays(
             avatar_id, a["frames"], a["faces"], a["coords"], a["mask_coords"], a["masks"],
@@ -596,36 +984,45 @@ def phase_musetalk_engine(torch, app, muse, blend, attn, synthetic, sd_vae,
     del vae
     opt = default_opt(model="musetalk", transport="queue", tts="dummy", coalesce=True,
                       device_paste_back=True, batch_size=16, device="cuda",
-                      avatar_id="smoke_ma", max_session=2)
-    t0 = time.time()
-    app.load_plugin_stack(opt)
-    log("musetalk_engine", load_plugin_stack_s=f"{time.time() - t0:.2f}")
+                      avatar_id=ids[0], max_session=2, vae_int8=int8, unet_int8=int8)
+    if int8:
+        os.environ["LT_FUSED_VAE"] = "1"
     try:
+        t0 = time.time()
+        app.load_plugin_stack(opt)
+        log(phase, load_plugin_stack_s=f"{time.time() - t0:.2f}")
         # the main path starts here: every kernel count from 0
         attn.attention.launches = 0
         blend.blend_masked_.launches = 0
-        r = drive_sessions(app, session_manager, muse, ("smoke_ma", "smoke_mb"), boxes[0],
+        conv.conv3x3_q.launches = 0
+        conv.conv3x3_gnq.launches = 0
+        r = drive_sessions(app, session_manager, muse, ids, boxes[0],
                            lambda: {"attention": attn.attention.launches,
-                                    "blend_mask": blend.blend_masked_.launches})
+                                    "blend_mask": blend.blend_masked_.launches,
+                                    "conv3x3_q": conv.conv3x3_q.launches,
+                                    "conv3x3_gnq": conv.conv3x3_gnq.launches})
         fc, sched, c = muse._shared["feat_coalescer"], r["sched"], r["counts"]
         if fc is None or fc.batches_run == 0:
             raise AssertionError("the feature coalescer ran no batch")
-        if sched.batches_run == 0 or c["attention"] < 17 * sched.batches_run:
-            raise AssertionError(f"attention launches {c['attention']} < 17 x scheduler "
-                                 f"batches {sched.batches_run}")
-        if c["blend_mask"] < sched.batches_run:
-            raise AssertionError(f"masked blend launches {c['blend_mask']} < scheduler "
-                                 f"batches {sched.batches_run}")
-        log("musetalk_engine", sessions=2, speech_frames=r["speech"], frames=r["frames"],
+        n = sched.batches_run
+        want = {"attention": 17, "blend_mask": 1, "conv3x3_q": 59 if int8 else 0,
+                "conv3x3_gnq": 21 if int8 else 0}
+        if n == 0 or any(c[k] < per * n for k, per in want.items()):
+            raise AssertionError(f"launches {c} for {n} scheduler batches; want at least "
+                                 f"{want} per batch")
+        if not int8 and (c["conv3x3_q"] or c["conv3x3_gnq"]):
+            raise AssertionError(f"the bf16 path launched int8 convs: {c}")
+        log(phase, sessions=2, speech_frames=r["speech"], frames=r["frames"],
             speech_fps_per_session=[f"{v:.1f}" for v in r["fps"]],
-            batches_run=sched.batches_run, requests_run=sched.requests_run,
+            batches_run=n, requests_run=sched.requests_run,
             requests_submitted=sched.requests_submitted,
             mean_coalesced=f"{r['mean_coalesced']:.2f}",
             latency_p50_ms=f"{r['latency_p50_ms']:.1f}",
             feature_batches=fc.batches_run, feature_requests=fc.requests_run,
-            attention_launches=c["attention"], blend_mask_launches=c["blend_mask"])
+            **{f"{k}_launches": v for k, v in c.items()})
         return c
     finally:
+        os.environ.pop("LT_FUSED_VAE", None)
         muse.reset_shared_scheduler()
 
 
@@ -737,9 +1134,9 @@ def main(argv) -> int:
     from livetalking_tpu_torch.avatars import musetalk_avatar as muse
     from livetalking_tpu_torch.avatars import wav2lip_avatar as plugin
     from livetalking_tpu_torch.models import musetalk as mt
-    from livetalking_tpu_torch.models import sd_vae
+    from livetalking_tpu_torch.models import sd_unet, sd_vae
     from livetalking_tpu_torch.models import wav2lip as w2l
-    from livetalking_tpu_torch.ops import _build, attention, blend
+    from livetalking_tpu_torch.ops import _build, attention, blend, conv
     from livetalking_tpu_torch.server.session_manager import session_manager
     from livetalking_tpu_torch.utils import synthetic
 
@@ -758,6 +1155,7 @@ def main(argv) -> int:
     if not peaks:
         raise AssertionError(f"no peak rates known for {name}")
     peak_bw, peak_f32, peak_bf16 = peaks[0]
+    peak_int8 = 2 * peak_bf16  # dense int8 tensor-core rate: twice bf16 on Hopper
     exp_rate = EXP_PER_SM_CLOCK * sms * clock_mhz * 1e6
 
     def timed(phase, fn, *args):
@@ -773,11 +1171,17 @@ def main(argv) -> int:
     b = timed("blend", phase_blend, torch, blend, peak_bw, peak_f32)
     bm = timed("blend_mask", phase_blend_mask, torch, blend, synthetic, peak_bw, peak_f32)
     at = timed("attention", phase_attention, torch, attention, peak_bw, peak_bf16, exp_rate)
+    k4 = timed("conv_int8", phase_conv_int8, torch, conv, sd_unet, sd_vae, peak_bw, peak_int8)
+    k5 = timed("gnq", phase_gnq, torch, conv, sd_vae, peak_bw, peak_f32, peak_int8)
     timed("model", phase_model, torch, w2l)
     timed("musetalk_model", phase_musetalk_model, torch, muse, mt, attention, wf)
+    timed("musetalk_int8_model", phase_musetalk_int8_model, torch, muse, mt, conv, attention,
+          wf, synthetic, sd_vae)
     e = timed("engine", phase_engine, torch, app, plugin, blend, session_manager)
     me = timed("musetalk_engine", phase_musetalk_engine, torch, app, muse, blend, attention,
-               synthetic, sd_vae, session_manager)
+               conv, synthetic, sd_vae, session_manager)
+    qe = timed("musetalk_int8_engine", phase_musetalk_engine, torch, app, muse, blend,
+               attention, conv, synthetic, sd_vae, session_manager, True)
     if paced:
         timed("paced", phase_paced_ab, torch, app, muse, synthetic, sd_vae, session_manager,
               paced)
@@ -796,6 +1200,10 @@ def main(argv) -> int:
             me["blend_mask"], bm["max_abs_err"], bm["rows"][128], None),
         row("attention", src + "attention.cu", "livetalking_tpu/ops/pallas_attention.py:79",
             me["attention"], at["max_abs_err"], at["step"], at["step"]["library_ms"]),
+        row("conv3x3_q", src + "conv.cu", "livetalking_tpu/ops/pallas_conv.py:130",
+            qe["conv3x3_q"], k4["max_abs_err"], k4["step"], None),
+        row("conv3x3_gnq", src + "conv.cu", "livetalking_tpu/ops/pallas_conv.py:324",
+            qe["conv3x3_gnq"], k5["max_abs_err"], k5["step"], None),
     ]
     log("done", seconds=f"{time.time() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)

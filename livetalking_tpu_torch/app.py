@@ -97,9 +97,10 @@ def load_plugin_stack(options):
     _load_avatar = mod.load_avatar
     if opt.model == "wav2lip":
         model = mod.load_model(opt.modelfile or f"{opt.models_dir}/wav2lip.pth", opt)
-    else:
+        mod.warm_up(opt.batch_size, model, 256)
+    else:  # musetalk's warm-up runs the graph of its int8 flags
         model = mod.load_model(opt)
-    mod.warm_up(opt.batch_size, model, 256)
+        mod.warm_up(opt.batch_size, model, 256, opt)
     if opt.avatar_id not in global_avatars:
         global_avatars[opt.avatar_id] = _load_avatar(opt.avatar_id, opt.data_dir, opt.device)
 

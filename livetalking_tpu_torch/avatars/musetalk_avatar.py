@@ -1,5 +1,5 @@
 """MuseTalk avatar plugin, model family "musetalk" (ports
-livetalking_tpu/avatars/musetalk_avatar.py, bf16/f32 path).
+livetalking_tpu/avatars/musetalk_avatar.py).
 
 Exports ``load_model`` / ``load_avatar`` / ``warm_up`` plus a
 ``BaseAvatar`` subclass registered as ``avatar/musetalk``. The avatar
@@ -15,8 +15,13 @@ uint8 BGR face (models/musetalk.py), on the device. Under ``--coalesce``
 every session shares one ``BatchScheduler`` and one Whisper
 ``FeatureCoalescer``; with ``--device_paste_back`` the super-batch step also
 runs the masked paste-back (ops/blend.py), so sessions receive finished
-full frames. The int8 flags (``--vae_int8``, ``--unet_int8``) raise: the
-int8 path is not ported yet.
+full frames.
+
+``--vae_int8`` / ``--unet_int8`` run the W8A8 decoder / U-Net
+(``--vae_mid_int8``, ``--attn_int8`` widen them). The first session
+quantizes the shared weights once and calibrates static activation scales
+on its avatar's latents (``session_params``); a later session asking for
+other int8 flags is rejected, never served the first session's trees.
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ from livetalking_tpu_torch.ops.blend import (
     make_masked_paste_fn,
     prepare_masked_paste_data,
 )
+from livetalking_tpu_torch.ops.whisper_mel import log_mel_spectrogram
 from livetalking_tpu_torch.registry import register
 from livetalking_tpu_torch.utils.device import resolve_device
 from livetalking_tpu_torch.utils.image import mirror_indices, read_imgs
@@ -60,7 +66,6 @@ from livetalking_tpu_torch.utils.logger import logger
 FACE = 256
 LATENT_SHAPE = (32, 32, 8)
 TINY_UNET = sd_unet.UNetConfig(block_out=(32, 64, 96, 96), heads=4)
-INT8_NOT_PORTED = "int8 MuseTalk is not ported yet (ROADMAP slice 3)"
 
 # shared cross-session state (one scheduler and one feature coalescer per
 # process), created lazily when --coalesce sessions appear
@@ -68,26 +73,22 @@ _shared_lock = threading.Lock()
 _shared: dict = {"store": None, "scheduler": None}
 
 
-def check_int8_flags(opt) -> None:
-    """Raise on the int8 flags: this port serves bf16/f32 only, and never
-    in place of a configuration the user asked for."""
-    if getattr(opt, "vae_int8", False) or getattr(opt, "unet_int8", False):
-        raise SchedulerConfigError(INT8_NOT_PORTED)
-
-
 def make_step_factory(unet_cfg, dtype: torch.dtype, store: AvatarStore,
-                      paste_spec: Dict[str, int] = None):
+                      paste_spec: Dict[str, int] = None, vae_int8: bool = False,
+                      unet_int8: bool = False):
     """``step_factory(n)`` for the shared scheduler: the MuseTalk step for a
-    super-batch of n, followed, when ``paste_spec`` ({"S","H","W","Ho","Wo"})
-    is given, by the masked paste-back over the store's ``pb_*`` planes, so
-    the step returns finished full frames."""
+    super-batch of n (int8 decoder / U-Net per the flags), followed, when
+    ``paste_spec`` ({"S","H","W","Ho","Wo"}) is given, by the masked
+    paste-back over the store's ``pb_*`` planes, so the step returns
+    finished full frames."""
     paste_fn = None
     if paste_spec is not None:
         paste_fn = make_masked_paste_fn(paste_spec["S"], paste_spec["Ho"], paste_spec["Wo"],
                                         paste_spec["H"], paste_spec["W"])
 
     def step_factory(n):
-        step = mt.make_infer_fn(unet_cfg, n, dtype=dtype)
+        step = mt.make_infer_fn(unet_cfg, n, dtype=dtype, vae_int8=vae_int8,
+                                unet_int8=unet_int8)
 
         @torch.inference_mode()
         def step_and_paste(params, buffer, idxs, whisper):
@@ -104,14 +105,18 @@ def make_step_factory(unet_cfg, dtype: torch.dtype, store: AvatarStore,
 
 def get_shared_scheduler(model: Dict[str, Any], batch_size: int, buckets=(1, 2, 4, 8),
                          coalesce_window_s: float = 0.0,
-                         paste_spec: Dict[str, int] = None) -> tuple:
+                         paste_spec: Dict[str, int] = None, params: tuple = None,
+                         vae_int8: bool = False, unet_int8: bool = False) -> tuple:
     """Lazily create the process-wide (AvatarStore, BatchScheduler) pair.
 
+    ``params`` is the (U-Net, VAE) pair the step runs (default the model's
+    full-precision trees; the int8 flags need the quantized ones).
     ``paste_spec`` (from the FIRST session's avatar geometry) composes the
     masked paste-back into the super-batch step. Later sessions must agree
-    on the frame size and fit the shared crop bucket."""
+    on the frame size, the int8 flags and fit the shared crop bucket."""
     with _shared_lock:
-        cfg = {"batch_size": batch_size, "buckets": tuple(buckets),
+        cfg = {"batch_size": batch_size, "vae_int8": bool(vae_int8),
+               "unet_int8": bool(unet_int8), "buckets": tuple(buckets),
                "coalesce_window_s": float(coalesce_window_s),
                "paste": (None if paste_spec is None
                          else (paste_spec["H"], paste_spec["W"]))}
@@ -120,8 +125,9 @@ def get_shared_scheduler(model: Dict[str, Any], batch_size: int, buckets=(1, 2, 
             if paste_spec is not None:
                 _shared["paste_geom"] = dict(paste_spec)
             sched = BatchScheduler(
-                (model["unet_params"], model["vae_params"]), store,
-                make_step_factory(model["unet_cfg"], model["dtype"], store, paste_spec),
+                params or (model["unet_params"], model["vae_params"]), store,
+                make_step_factory(model["unet_cfg"], model["dtype"], store, paste_spec,
+                                  vae_int8=vae_int8, unet_int8=unet_int8),
                 batch_size, buckets=buckets, coalesce_window_s=coalesce_window_s)
             sched.start()
             _shared["store"] = store
@@ -205,7 +211,6 @@ def load_model(opt) -> Dict[str, Any]:
     (Whisper 0, VAE 1, U-Net 2), as the reference does: same graph, same
     speed, untrained output. ``musetalk_size="tiny"`` picks a narrow U-Net
     for tests."""
-    check_int8_flags(opt)
     device = resolve_device(getattr(opt, "device", "cuda"))
     dtype = torch.bfloat16 if getattr(opt, "dtype", "bfloat16") == "bfloat16" else torch.float32
     models_dir = getattr(opt, "models_dir", "./models")
@@ -301,17 +306,116 @@ def load_avatar(avatar_id: str, data_dir: str = "./data", device="cuda") -> Dict
                    resolve_device(device))
 
 
+def _check_quant_flags(model: Dict[str, Any], key: str, wanted: Dict[str, bool]) -> None:
+    """The quantized trees cached in the shared ``model`` were built with the
+    FIRST session's flags; a later session asking for other flags is
+    rejected instead of being served them. Trees installed without a flag
+    record are accepted as they are."""
+    recorded = model.get(key)
+    if recorded is not None and recorded != wanted:
+        raise SchedulerConfigError(
+            f"quantized params cached with {recorded}; conflicting session config "
+            f"{wanted} rejected (per-session int8 flag overrides are not allowed once "
+            "quantization ran)")
+
+
+def _with_dummy_scales(tree):
+    """Every quantized conv site with a placeholder activation scale of 1,
+    so a warm-up runs the static-scale graph the calibrated trees run.
+    Linear sites (2-D ``wq``) keep their dynamic scales, as calibrated
+    trees do."""
+    if isinstance(tree, dict):
+        out = {k: _with_dummy_scales(v) for k, v in tree.items()}
+        if "wq" in out and out["wq"].dim() == 4:
+            out["as"] = torch.tensor(1.0, device=out["wq"].device)
+        return out
+    if isinstance(tree, list):
+        return [_with_dummy_scales(v) for v in tree]
+    return tree
+
+
+def _int8_flags(opt) -> tuple:
+    """(vae_int8, unet_int8, vae_mid_int8, attn_int8) of ``opt``."""
+    return (bool(getattr(opt, "vae_int8", False)), bool(getattr(opt, "unet_int8", False)),
+            bool(getattr(opt, "vae_mid_int8", True)), bool(getattr(opt, "attn_int8", True)))
+
+
+def _calibration_context(model: Dict[str, Any], nb: int) -> torch.Tensor:
+    """(nb, 50, cross_dim) U-Net context with the encoder's statistics: 1 s
+    of noise through the model's Whisper encoder, read in the runtime's
+    window layout (10 positions x 5 layer states per 50-row window). The
+    noise comes from ``numpy.random.default_rng(0)``: the reference draws
+    it with jax.random, whose bits no other generator reproduces."""
+    ucfg, wcfg, dev = model["unet_cfg"], model["whisper_cfg"], model["device"]
+    rng = np.random.default_rng(0)
+    if wcfg.d_model == ucfg.cross_dim:
+        wav = torch.from_numpy((rng.standard_normal(16000) * 0.1).astype(np.float32)).to(dev)
+        states = we.apply_stacked(model["whisper_params"], wcfg, log_mel_spectrogram(wav)[None])[0]
+        ctx = states.reshape(-1, wcfg.d_model)[:nb * 50].reshape(nb, 50, wcfg.d_model)
+    else:  # a custom config whose widths differ: a magnitude-only proxy
+        ctx = torch.from_numpy(rng.standard_normal((nb, 50, ucfg.cross_dim)).astype(np.float32))
+    pe = torch.from_numpy(mt.positional_encoding_table(50, ucfg.cross_dim))
+    return (ctx.float().to(dev) + pe.to(dev)).to(model["dtype"])
+
+
+@torch.inference_mode()
+def session_params(model: Dict[str, Any], opt, latent_cycle: torch.Tensor) -> tuple:
+    """(U-Net, VAE) trees a session's step runs under ``opt``'s int8 flags.
+
+    The first session that asks for int8 quantizes the shared weights once
+    and calibrates static scales: the decoder on the reference-face half
+    of its first 4 latents (``[..., 4:]``, the decode-time distribution),
+    the U-Net on its first min(4, N) latents and a context with the
+    Whisper encoder's statistics. Later sessions reuse those trees, and
+    are rejected when their flags differ."""
+    vae_int8, unet_int8, mid_int8, attn_int8 = _int8_flags(opt)
+    vae_params, unet_params = model["vae_params"], model["unet_params"]
+    if vae_int8:
+        if "vae_params_q" in model:
+            _check_quant_flags(model, "vae_q_flags", {"vae_mid_int8": mid_int8})
+        else:
+            q = sd_vae.quantize_decoder(vae_params, mid_int8=mid_int8)
+            model["vae_params_q"] = sd_vae.calibrate_decoder(vae_params, q,
+                                                             latent_cycle[:4, :, :, 4:])
+            model["vae_q_flags"] = {"vae_mid_int8": mid_int8}
+            logger.info("musetalk: int8 VAE decoder calibrated")
+        vae_params = model["vae_params_q"]
+    if unet_int8:
+        if "unet_params_q" in model:
+            _check_quant_flags(model, "unet_q_flags", {"attn_int8": attn_int8})
+        else:
+            nb = min(4, latent_cycle.shape[0])
+            q = sd_unet.quantize_unet(unet_params, attn_int8=attn_int8)
+            t = torch.zeros((nb,), device=latent_cycle.device)
+            model["unet_params_q"] = sd_unet.calibrate_unet(
+                unet_params, q, model["unet_cfg"], latent_cycle[:nb].to(model["dtype"]), t,
+                _calibration_context(model, nb))
+            model["unet_q_flags"] = {"attn_int8": attn_int8}
+            logger.info("musetalk: int8 U-Net calibrated")
+        unet_params = model["unet_params_q"]
+    return unet_params, vae_params
+
+
 def warm_up(batch_size: int, model: Dict[str, Any], modelres: int = FACE, opt=None) -> None:
-    """Run the step once on zeros (a graph smoke test; the first call of a
-    shape also sets up cuDNN)."""
-    check_int8_flags(opt)
-    logger.info("warmup musetalk model...")
+    """Run the step sessions will run once on zeros (a graph smoke test; the
+    first call of a shape also sets up cuDNN): with int8 flags, on quantized
+    trees with placeholder activation scales, the graph of the calibrated
+    trees."""
+    vae_int8, unet_int8, mid_int8, attn_int8 = _int8_flags(opt)
+    logger.info("warmup musetalk model... (vae_int8=%s unet_int8=%s attn_int8=%s "
+                "vae_mid_int8=%s)", vae_int8, unet_int8, attn_int8, mid_int8)
     dev = model["device"]
-    step = mt.make_infer_fn(model["unet_cfg"], batch_size, dtype=model["dtype"])
+    step = mt.make_infer_fn(model["unet_cfg"], batch_size, dtype=model["dtype"],
+                            vae_int8=vae_int8, unet_int8=unet_int8)
+    up, vp = model["unet_params"], model["vae_params"]
+    if unet_int8:
+        up = _with_dummy_scales(sd_unet.quantize_unet(up, attn_int8=attn_int8))
+    if vae_int8:
+        vp = _with_dummy_scales(sd_vae.quantize_decoder(vp, mid_int8=mid_int8))
     cycle = torch.zeros((1,) + LATENT_SHAPE, device=dev)
     idxs = torch.zeros((batch_size,), dtype=torch.int32, device=dev)
     whisper = torch.zeros((batch_size, 50, model["unet_cfg"].cross_dim), device=dev)
-    step(model["unet_params"], model["vae_params"], cycle, idxs, whisper)
+    step(up, vp, cycle, idxs, whisper)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
 
@@ -337,7 +441,6 @@ def blend_face(body: np.ndarray, face: np.ndarray, face_box, mask: np.ndarray,
 @register("avatar", "musetalk")
 class MuseReal(BaseAvatar):
     def __init__(self, opt, model: Dict[str, Any], avatar: Dict[str, Any]):
-        check_int8_flags(opt)
         super().__init__(opt)
         self.model = model
         self.frame_list_cycle = avatar["frame_list_cycle"]
@@ -346,6 +449,9 @@ class MuseReal(BaseAvatar):
         self.mask_coords_list_cycle = avatar["mask_coords_list_cycle"]
         self.latent_cycle_device = avatar["latent_cycle_device"]
         self._n_frames = int(self.latent_cycle_device.shape[0])
+        vae_int8, unet_int8 = _int8_flags(opt)[:2]
+        self._unet_params, self._vae_params = session_params(model, opt,
+                                                             self.latent_cycle_device)
 
         self._scheduler = None
         self._store_offset = 0
@@ -362,7 +468,8 @@ class MuseReal(BaseAvatar):
             store, self._scheduler = get_shared_scheduler(
                 model, self.batch_size, buckets=parse_buckets(opt),
                 coalesce_window_s=resolve_coalesce_window(opt, self.batch_size),
-                paste_spec=paste_spec)
+                paste_spec=paste_spec, params=(self._unet_params, self._vae_params),
+                vae_int8=vae_int8, unet_int8=unet_int8)
             # validate the feature-coalescer config BEFORE store.add: a
             # rejected session must not leak its cycle into the shared store
             feat_coalescer = get_shared_feature_coalescer(model, opt)
@@ -388,7 +495,8 @@ class MuseReal(BaseAvatar):
                                               aux=aux)
         else:
             self._step = mt.make_infer_fn(model["unet_cfg"], self.batch_size,
-                                          dtype=model["dtype"])
+                                          dtype=model["dtype"], vae_int8=vae_int8,
+                                          unet_int8=unet_int8)
 
         # on-device composite with the per-frame masks without the
         # scheduler; under --coalesce the scheduler's step composes instead
@@ -430,9 +538,8 @@ class MuseReal(BaseAvatar):
         if self._scheduler is not None:
             return self._scheduler.infer(idxs + self._store_offset, audiofeat_batch)
         dev = self.latent_cycle_device.device
-        pred = self._step(self.model["unet_params"], self.model["vae_params"],
-                          self.latent_cycle_device, torch.from_numpy(idxs).to(dev),
-                          audiofeat_batch)
+        pred = self._step(self._unet_params, self._vae_params, self.latent_cycle_device,
+                          torch.from_numpy(idxs).to(dev), audiofeat_batch)
         if self._device_paste is not None:
             return self._device_paste.paste_batch(pred, idxs)
         return pred.cpu().numpy()  # (B, 256, 256, 3) uint8 BGR

@@ -5,9 +5,8 @@ Same flag surface, defaults and precedence (CLI > YAML > built-in
 defaults) as the reference package, so launch scripts keep working, plus
 ``--device`` (default ``cuda``), the port's counterpart of
 ``JAX_PLATFORMS``. ``--model`` takes wav2lip and musetalk (bf16/f32, with
-``--whisper_short_window``). The musetalk int8 flags (``--vae_int8``,
-``--unet_int8``) raise when a musetalk model or session is built: that
-path is not ported yet, and nothing serves bf16 in its place. Flags of
+``--whisper_short_window``, and W8A8 int8 with ``--vae_int8`` /
+``--unet_int8``, widened by ``--vae_mid_int8`` / ``--attn_int8``). Flags of
 features that later slices port (meshes, profiling) are accepted and have
 no effect yet. ``customvideo_config`` JSON is post-parsed into
 ``opt.customopt``.
@@ -111,15 +110,19 @@ def _declare_flags(parser: argparse.ArgumentParser) -> None:
              "request latency at the cost of one batch of glass-to-glass "
              "latency. Depth 1 is the synchronous reference behavior")
     add("--vae_int8", action="store_true", default=False,
-        help="musetalk int8 VAE decoder: not ported yet, raises")
+        help="musetalk: W8A8 int8 VAE decoder (3x3 convs on the csrc/conv.cu "
+             "kernels; static activation scales calibrated on the first "
+             "session's avatar; LT_FUSED_VAE=1 fuses GroupNorm+SiLU+quantize "
+             "into the up-block convs)")
     add("--unet_int8", action="store_true", default=False,
-        help="musetalk int8 U-Net: not ported yet, raises")
+        help="musetalk: W8A8 int8 U-Net convs (calibrated on the first "
+             "session's avatar latents)")
     add("--attn_int8", type=int, default=1,
-        help="musetalk --unet_int8 transformer matmuls (not ported yet; "
-             "read only with --unet_int8, which raises)")
+        help="with --unet_int8: also run the transformer's softmax-safe "
+             "matmuls in int8 (q/k and cross-attention k/v stay bf16)")
     add("--vae_mid_int8", type=int, default=1,
-        help="musetalk --vae_int8 mid block (not ported yet; read only "
-             "with --vae_int8, which raises)")
+        help="with --vae_int8: also run the decoder's two mid-block resnets "
+             "in int8")
     add("--whisper_short_window", action="store_true", default=False,
         help="musetalk: encode the Whisper rolling window itself instead "
              "of the 30 s zero-padded chunk (same mel values for the real "

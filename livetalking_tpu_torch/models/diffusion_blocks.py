@@ -1,5 +1,5 @@
 """Functional blocks of the Stable-Diffusion-family models MuseTalk uses,
-AutoencoderKL and UNet2DConditionModel (ports the bf16/f32 half of
+AutoencoderKL and UNet2DConditionModel (ports
 livetalking_tpu/models/diffusion_blocks.py).
 
 Activations are NHWC at every public function, as in the reference; a
@@ -15,12 +15,21 @@ Self-attention (``attention`` with ``ctx=None``, and the VAE's
 kernel's wrapper. Cross-attention over the 50 Whisper tokens keeps its own
 two matmuls and f32 softmax here, as the reference keeps it outside any
 kernel.
+
+The W8A8 int8 half (``quantize_conv``, ``conv_q``, ``quantize_linear``,
+``linear_q``, ``quantize_transformer``) keeps the reference's order of
+operations: quantize ``clip(round(x.float() / sx), -127, 127)`` with a
+static (``as``) or dynamic (abs-max / 127) activation scale, exact integer
+sums, dequantize ``acc * (sx * ws) + b`` in f32, cast to ``x.dtype``, then
+add a residual in ``x.dtype``. 3x3 stride-1 convs run kernel 4
+(``ops.conv.conv3x3_q``) on the card; 1x1 and stride-2 convs and the
+linears run the exact int8 GEMM ``ops.conv.int8_matmul``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -30,6 +39,7 @@ from livetalking_tpu_torch.models.layers import layer_norm_f32 as layer_norm
 from livetalking_tpu_torch.models.layers import linear_f32 as linear
 from livetalking_tpu_torch.models.layers import to_numpy
 from livetalking_tpu_torch.ops.attention import attention as attention_kernel
+from livetalking_tpu_torch.ops.conv import CHANNEL_MULTIPLE, conv3x3_q, int8_matmul
 
 Params = Dict[str, Any]
 
@@ -124,9 +134,9 @@ def attention(p: Params, x: torch.Tensor, ctx: Optional[torch.Tensor], heads: in
     with). x (B, T, C); ctx (B, S, D) for cross-attention, else self."""
     B, T, C = x.shape
     kv_src = x if ctx is None else ctx
-    q = _split_heads(linear(p["q"], x), heads)
-    k = _split_heads(linear(p["k"], kv_src), heads)
-    v = _split_heads(linear(p["v"], kv_src), heads)
+    q = _split_heads(_lin(p["q"], x), heads)
+    k = _split_heads(_lin(p["k"], kv_src), heads)
+    v = _split_heads(_lin(p["v"], kv_src), heads)
     scale = (C // heads) ** -0.5
     if ctx is None:
         o = attention_kernel(q, k, v, scale)
@@ -134,15 +144,15 @@ def attention(p: Params, x: torch.Tensor, ctx: Optional[torch.Tensor], heads: in
         s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
         a = torch.softmax(s, dim=-1).to(q.dtype)
         o = torch.matmul(a, v).to(q.dtype)
-    return linear(p["o"], _merge_heads(o))
+    return _lin(p["o"], _merge_heads(o))
 
 
 def geglu_ff(p: Params, x: torch.Tensor) -> torch.Tensor:
     """diffusers FeedForward with GEGLU: proj to 2*inner, x * gelu(gate)."""
-    h = linear(p["proj"], x)
+    h = _lin(p["proj"], x)
     a, gate = h.chunk(2, dim=-1)
     h = a * F.gelu(gate.float()).to(a.dtype)
-    return linear(p["out"], h)
+    return _lin(p["out"], h)
 
 
 def transformer_2d(p: Params, x: torch.Tensor, ctx: torch.Tensor, heads: int) -> torch.Tensor:
@@ -151,13 +161,204 @@ def transformer_2d(p: Params, x: torch.Tensor, ctx: torch.Tensor, heads: int) ->
     B, H, W, C = x.shape
     res = x
     h = group_norm(p["norm"], x, eps=1e-6)
-    h = conv(p["proj_in"], h, padding=0).reshape(B, H * W, C)
+    # quantize_transformer stores the 1x1 projections as int8 linears
+    if "wq" in p["proj_in"]:
+        h = linear_q(p["proj_in"], h.reshape(B, H * W, C))
+    else:
+        h = conv(p["proj_in"], h, padding=0).reshape(B, H * W, C)
     tb = p["block"]
     h = h + attention(tb["attn1"], layer_norm(tb["norm1"], h), None, heads)
     h = h + attention(tb["attn2"], layer_norm(tb["norm2"], h), ctx, heads)
     h = h + geglu_ff(tb["ff"], layer_norm(tb["norm3"], h))
-    h = conv(p["proj_out"], h.reshape(B, H, W, C), padding=0)
+    if "wq" in p["proj_out"]:
+        h = linear_q(p["proj_out"], h).reshape(B, H, W, C)
+    else:
+        h = conv(p["proj_out"], h.reshape(B, H, W, C), padding=0)
     return h + res
+
+
+def _lin(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """int8 W8A8 linear when the tree holds quantized weights
+    (``quantize_transformer``), the model-dtype linear otherwise."""
+    return linear_q(p, x) if "wq" in p else linear(p, x)
+
+
+# ---------------------------------------------------------------------------
+# W8A8 int8 path (the VAE decoder and the latent U-Net)
+# ---------------------------------------------------------------------------
+
+def _dynamic_scale(x: torch.Tensor) -> torch.Tensor:
+    """Per-tensor activation scale max|x| / 127 (floor 1e-8), on the device."""
+    return x.float().abs().amax().clamp(min=1e-8) / 127.0
+
+
+def quantize_act(x: torch.Tensor, sx: torch.Tensor) -> torch.Tensor:
+    """clip(round(x / sx), -127, 127) as int8, in f32, rounding half to even."""
+    return torch.round(x.float() / sx).clamp_(-127, 127).to(torch.int8)
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def quantize_conv(p: Params) -> Params:
+    """Per-output-channel symmetric int8 weights for a conv site.
+
+    ``wq`` is laid out once here for the kernels: (O, kh, kw, C) int8, tap
+    ``(dy, dx)`` channel ``c`` at ``(dy*kw + dx)*C + c`` of row ``o``. A
+    3x3 site whose C is not a multiple of ``ops.conv.CHANNEL_MULTIPLE`` (the
+    U-Net's ``conv_in``, C = 8) gets zero input channels up to the next
+    multiple: they add nothing to any sum. ``ws`` (O,) f32 per-channel
+    scales, ``b`` (O,) f32 bias."""
+    w = p["w"].float()  # (O, I, kh, kw)
+    scale = w.abs().amax(dim=(1, 2, 3)).clamp(min=1e-8) / 127.0
+    wq = torch.round(w / scale[:, None, None, None]).clamp_(-127, 127).to(torch.int8)
+    wq = wq.permute(0, 2, 3, 1).contiguous()
+    O, kh, kw, C = wq.shape
+    if kh == kw == 3 and C % CHANNEL_MULTIPLE:
+        wq = F.pad(wq, (0, _round_up(C, CHANNEL_MULTIPLE) - C))
+    return {"wq": wq, "ws": scale, "b": p["b"].float()}
+
+
+def _im2col(xq: torch.Tensor, kh: int, kw: int, stride: int, padding: int) -> torch.Tensor:
+    """(B, H, W, C) -> (B*Ho*Wo, kh*kw*C), K in the (dy, dx, c) order of
+    ``quantize_conv``'s layout."""
+    B, H, W, C = xq.shape
+    if kh == kw == 1 and stride == 1 and padding == 0:
+        return xq.reshape(B * H * W, C)
+    xp = F.pad(xq, (0, 0, padding, padding, padding, padding))
+    Ho = (H + 2 * padding - kh) // stride + 1
+    Wo = (W + 2 * padding - kw) // stride + 1
+    taps = [xp[:, dy:dy + stride * (Ho - 1) + 1:stride, dx:dx + stride * (Wo - 1) + 1:stride]
+            for dy in range(kh) for dx in range(kw)]
+    return torch.stack(taps, dim=3).reshape(B * Ho * Wo, kh * kw * C)
+
+
+def conv_q(pq: Params, x: torch.Tensor, stride: int = 1, padding: int = 1,
+           residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """int8 conv: activation scale static (``as``, calibrated) or dynamic;
+    exact integer sums; ``acc * (sx * ws) + b`` in f32, cast to
+    ``x.dtype``, then ``+ residual`` in ``x.dtype``.
+
+    3x3 stride-1 pad-1 sites go to kernel 4 (``conv3x3_q``, which runs its
+    plain version on CPU tensors), with ``x`` zero-padded to the weights'
+    channel count; the others (1x1 shortcuts, stride-2 downsamplers) to the
+    exact GEMM ``int8_matmul`` on im2col patches."""
+    sx = pq["as"] if "as" in pq else _dynamic_scale(x)
+    xq = quantize_act(x, sx)
+    wq = pq["wq"]
+    O, kh, kw, Cw = wq.shape
+    B, H, W, C = x.shape
+    if Cw != C:  # quantize_conv's zero channels
+        xq = F.pad(xq, (0, Cw - C))
+    scale = sx * pq["ws"]
+    if kh == kw == 3 and stride == 1 and padding == 1:
+        y = conv3x3_q(xq, wq, scale, pq["b"], out_dtype=x.dtype)
+    else:
+        Ho = (H + 2 * padding - kh) // stride + 1
+        Wo = (W + 2 * padding - kw) // stride + 1
+        acc = int8_matmul(_im2col(xq, kh, kw, stride, padding), wq.reshape(O, -1))
+        y = (acc.float() * scale + pq["b"]).to(x.dtype).reshape(B, Ho, Wo, O)
+    if residual is not None:
+        y = y + residual.to(y.dtype)
+    return y
+
+
+def quantize_linear(p: Params) -> Params:
+    """Per-output-channel symmetric int8 weights for a linear site: ``wq``
+    (out, in) int8 (2-D, which tells linear sites from conv sites), ``ws``
+    (out,) f32, ``b`` f32 or None."""
+    w = p["w"].float()  # (out, in)
+    scale = w.abs().amax(dim=1).clamp(min=1e-8) / 127.0
+    wq = torch.round(w / scale[:, None]).clamp_(-127, 127).to(torch.int8)
+    b = p.get("b")
+    return {"wq": wq.contiguous(), "ws": scale, "b": None if b is None else b.float()}
+
+
+def linear_q(pq: Params, x: torch.Tensor) -> torch.Tensor:
+    """W8A8 linear: dynamic per-tensor activation scale unless a static
+    ``as`` is present; exact int32 sums, f32 dequant + bias, ``x.dtype``."""
+    sx = pq.get("as")
+    if sx is None:
+        sx = _dynamic_scale(x)
+    xq = quantize_act(x, sx)
+    N, K = pq["wq"].shape
+    acc = int8_matmul(xq.reshape(-1, K), pq["wq"])
+    y = acc.float() * (sx * pq["ws"])
+    if pq.get("b") is not None:
+        y = y + pq["b"]
+    return y.to(x.dtype).reshape(*x.shape[:-1], N)
+
+
+def quantize_transformer(p: Params) -> Params:
+    """int8 weights for the softmax-safe transformer matmuls: the
+    proj_in/proj_out 1x1 convs (as int8 linears), self-attention v/o,
+    cross-attention o and the GEGLU pair. q/k stay model-dtype so the
+    attention scores are exact, and so do cross-attention's k/v (their
+    source is the 50-token Whisper context)."""
+    def q_proj(cp):  # 1x1 conv (O, I, 1, 1) -> int8 linear (O, I)
+        return quantize_linear({"w": cp["w"][:, :, 0, 0], "b": cp.get("b")})
+
+    tb = p["block"]
+    return {
+        "norm": p["norm"],
+        "proj_in": q_proj(p["proj_in"]),
+        "proj_out": q_proj(p["proj_out"]),
+        "block": {
+            "norm1": tb["norm1"],
+            "attn1": {"q": tb["attn1"]["q"], "k": tb["attn1"]["k"],
+                      "v": quantize_linear(tb["attn1"]["v"]),
+                      "o": quantize_linear(tb["attn1"]["o"])},
+            "norm2": tb["norm2"],
+            "attn2": {"q": tb["attn2"]["q"], "k": tb["attn2"]["k"],
+                      "v": tb["attn2"]["v"],
+                      "o": quantize_linear(tb["attn2"]["o"])},
+            "norm3": tb["norm3"],
+            "ff": {"proj": quantize_linear(tb["ff"]["proj"]),
+                   "out": quantize_linear(tb["ff"]["out"])},
+        },
+    }
+
+
+def fetch_scales(rec, device) -> Iterator[torch.Tensor]:
+    """A calibration walk's per-site scales (0-d device tensors) fetched in
+    ONE host copy, handed out in walk order as 0-d f32 tensors on
+    ``device`` (one device copy back)."""
+    host = torch.stack([r.float() for r in rec]).cpu()
+    return iter(host.to(device).unbind(0))
+
+
+def quantized_from_jax(tree, dtype: torch.dtype = torch.float32, device="cpu"):
+    """The JAX package's quantized (and calibrated) SD tree, leaves as numpy
+    arrays, -> the port's: conv ``wq`` HWIO -> (O, kh, kw, C) with
+    ``quantize_conv``'s channel padding, linear ``wq`` (in, out) ->
+    (out, in), ``ws``/``b``/``as`` f32 tensors (``as`` 0-d). The folded
+    upsampler weights ``wq4``/``ws4`` are dropped: the port runs every
+    upsampler as conv3x3(nearest2x(x)) (ROADMAP "Leave out"). Sites that
+    stayed full precision convert as ``tree_from_jax`` does, in ``dtype``."""
+    if isinstance(tree, list):
+        return [quantized_from_jax(v, dtype, device) for v in tree]
+    if tree is None:
+        return None
+    if not isinstance(tree, dict):
+        return _tensor(tree, dtype, device)
+    if "wq" not in tree:
+        if "w" in tree:
+            return prepare(tree_from_jax(tree), device, dtype)
+        return {k: quantized_from_jax(v, dtype, device) for k, v in tree.items()}
+    wq = np.asarray(tree["wq"], np.int8)
+    if wq.ndim == 4:
+        w = torch.from_numpy(np.ascontiguousarray(wq.transpose(3, 0, 1, 2)))
+        C = w.shape[-1]
+        if w.shape[1] == w.shape[2] == 3 and C % CHANNEL_MULTIPLE:
+            w = F.pad(w, (0, _round_up(C, CHANNEL_MULTIPLE) - C))
+    else:
+        w = torch.from_numpy(np.ascontiguousarray(wq.T))
+    out = {"wq": w.contiguous().to(device)}
+    for key in ("ws", "b", "as"):
+        if key in tree:
+            out[key] = None if tree[key] is None else _tensor(tree[key], device=device)
+    return out
 
 
 def upsample_nearest2x(x: torch.Tensor) -> torch.Tensor:

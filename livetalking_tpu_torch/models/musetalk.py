@@ -12,6 +12,7 @@ paste-back.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -31,16 +32,24 @@ def positional_encoding_table(seq_len: int, d_model: int = 384) -> np.ndarray:
 
 
 def make_infer_fn(unet_cfg: sd_unet.UNetConfig, batch_size: int, ctx_len: int = 50,
-                  dtype: torch.dtype = torch.bfloat16):
+                  dtype: torch.dtype = torch.bfloat16, vae_int8: bool = False,
+                  unet_int8: bool = False):
     """Build the device step:
 
         (unet_params, vae_params, latent_cycle (N, 32, 32, 8) f32, idxs (B,),
          whisper (B, ctx_len, 384) f32) -> (B, 256, 256, 3) uint8 BGR faces
 
     on the tensors' device; the parameters must already be there in
-    ``dtype`` (``diffusion_blocks.prepare``)."""
+    ``dtype`` (``diffusion_blocks.prepare``). ``vae_int8`` / ``unet_int8``
+    run the W8A8 decoder / U-Net, whose parameters are then the
+    ``quantize_decoder`` / ``quantize_unet`` trees (calibrated)."""
     pe_host = torch.from_numpy(positional_encoding_table(ctx_len, unet_cfg.cross_dim))
     pe_dev = {}
+    if vae_int8:
+        decode = sd_vae.decode_int8
+    else:
+        decode = functools.partial(sd_vae.decode, dtype=dtype)
+    unet_apply = sd_unet.apply_int8 if unet_int8 else sd_unet.apply
 
     @torch.inference_mode()
     def step(unet_params, vae_params, latent_cycle, idxs, whisper):
@@ -53,8 +62,8 @@ def make_infer_fn(unet_cfg: sd_unet.UNetConfig, batch_size: int, ctx_len: int = 
         lat = latent_cycle.index_select(0, idxs.to(dev)).to(dtype)
         ctx = (whisper.float() + pe).to(dtype)
         t = torch.zeros((batch_size,), dtype=torch.float32, device=dev)
-        pred = sd_unet.apply(unet_params, unet_cfg, lat, t, ctx)   # (B, 32, 32, 4) f32
-        img = sd_vae.decode(vae_params, pred.to(dtype), dtype=dtype)  # (B, 256, 256, 3) RGB
+        pred = unet_apply(unet_params, unet_cfg, lat, t, ctx)  # (B, 32, 32, 4) f32
+        img = decode(vae_params, pred.to(dtype))  # (B, 256, 256, 3) RGB in [0, 1]
         u8 = (img * 255.0).round().clamp(0, 255).to(torch.uint8)
         return u8.flip(-1).contiguous()  # RGB -> BGR
 

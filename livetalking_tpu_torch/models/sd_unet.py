@@ -7,22 +7,31 @@ layers per block, cross_attention_dim 384 (Whisper features), 8 attention
 heads, conv Transformer2D projections. MuseTalk runs ONE denoise step at
 t=0. Every transformer's self-attention (16 per step at full width) runs
 the ``csrc/attention.cu`` kernel on the card.
+
+The W8A8 twin (``quantize_unet``, ``calibrate_unet``, ``apply_int8``)
+quantizes every conv (and, with ``attn_int8``, the softmax-safe
+transformer matmuls); its 3x3 stride-1 convs (49 per step at full width)
+run kernel 4 of ``csrc/conv.cu`` on the card.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import torch
 
 from livetalking_tpu_torch.models.diffusion_blocks import (
     Params,
     conv,
+    conv_q,
     count_params,
+    fetch_scales,
     group_norm,
     linear,
     prepare,
+    quantize_conv,
+    quantize_transformer,
     resnet_block,
     silu,
     t_conv,
@@ -36,8 +45,9 @@ from livetalking_tpu_torch.models.diffusion_blocks import (
     upsample_nearest2x,
 )
 
-__all__ = ["UNetConfig", "MUSETALK", "apply", "init_params", "params_from_jax",
-           "convert_torch_state_dict", "count_params"]
+__all__ = ["UNetConfig", "MUSETALK", "apply", "apply_int8", "quantize_unet",
+           "calibrate_unet", "init_params", "params_from_jax", "convert_torch_state_dict",
+           "count_params"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,6 +103,153 @@ def apply(params: Params, cfg: UNetConfig, x: torch.Tensor, t: torch.Tensor,
 
     h = silu(group_norm(params["norm_out"], h, eps=cfg.norm_eps))
     return conv(params["conv_out"], h).float()
+
+
+# ---------------------------------------------------------------------------
+# W8A8 int8 twin
+# ---------------------------------------------------------------------------
+
+def _q_resnet(rp: Params) -> Params:
+    out = {"norm1": rp["norm1"], "norm2": rp["norm2"],
+           "conv1": quantize_conv(rp["conv1"]), "conv2": quantize_conv(rp["conv2"])}
+    if "time_emb_proj" in rp:
+        out["time_emb_proj"] = rp["time_emb_proj"]
+    if "conv_shortcut" in rp:
+        out["conv_shortcut"] = quantize_conv(rp["conv_shortcut"])
+    return out
+
+
+def _q_block(blk: Params, attn_int8: bool) -> Params:
+    b: Params = {"resnets": [_q_resnet(rp) for rp in blk["resnets"]]}
+    if "attentions" in blk:
+        b["attentions"] = ([quantize_transformer(a) for a in blk["attentions"]]
+                           if attn_int8 else blk["attentions"])
+    for key in ("down", "up"):
+        if key in blk:
+            b[key] = quantize_conv(blk[key])
+    return b
+
+
+@torch.inference_mode()
+def quantize_unet(params: Params, attn_int8: bool = True) -> Params:
+    """One-time int8 conversion of every U-Net conv (norms and the time
+    embedding stay model-dtype), on the weights' device. ``attn_int8`` also
+    quantizes the softmax-safe transformer matmuls (their activation scales
+    stay dynamic, so ``calibrate_unet`` has no sites there)."""
+    return {
+        "conv_in": quantize_conv(params["conv_in"]),
+        "time1": params["time1"], "time2": params["time2"],
+        "down": [_q_block(b, attn_int8) for b in params["down"]],
+        "mid": {"r0": _q_resnet(params["mid"]["r0"]),
+                "attn": (quantize_transformer(params["mid"]["attn"])
+                         if attn_int8 else params["mid"]["attn"]),
+                "r1": _q_resnet(params["mid"]["r1"])},
+        "up": [_q_block(b, attn_int8) for b in params["up"]],
+        "norm_out": params["norm_out"],
+        "conv_out": quantize_conv(params["conv_out"]),
+    }
+
+
+def _walk_int8(pq: Params, cfg: UNetConfig, x: torch.Tensor, t: torch.Tensor,
+               ctx: torch.Tensor, full: Optional[Params] = None,
+               rec: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+    """The graph shared by ``apply_int8`` (``full`` None) and
+    ``calibrate_unet``: with ``full`` (the full-precision tree) it runs the
+    full-precision graph and appends each conv site's activation scale
+    ``max|a| * 1.25 / 127 + 1e-8`` (a device scalar) to ``rec`` in walk
+    order."""
+    cal = full is not None
+    pf = full if cal else pq
+
+    def cq(site_q, site_f, xx, stride=1, padding=1):
+        if cal:
+            rec.append(xx.float().abs().amax() * 1.25 / 127.0 + 1e-8)
+            return conv(site_f, xx, stride=stride, padding=padding)
+        return conv_q(site_q, xx, stride=stride, padding=padding)
+
+    def resnet(rq, rf, h_in):
+        h = cq(rq["conv1"], rf["conv1"], silu(group_norm(rf["norm1"], h_in, eps=cfg.norm_eps)))
+        if "time_emb_proj" in rf:
+            tproj = linear(rf["time_emb_proj"], silu(temb))
+            h = h + tproj[:, None, None, :].to(h.dtype)
+        h = cq(rq["conv2"], rf["conv2"], silu(group_norm(rf["norm2"], h, eps=cfg.norm_eps)))
+        sc = h_in
+        if "conv_shortcut" in rf:
+            sc = cq(rq["conv_shortcut"], rf["conv_shortcut"], h_in, padding=0)
+        return sc + h
+
+    temb = timestep_embedding(t, cfg.block_out[0])
+    temb = linear(pf["time2"], silu(linear(pf["time1"], temb.to(x.dtype))))
+
+    h = cq(pq["conv_in"], pf["conv_in"], x)
+    skips: List[torch.Tensor] = [h]
+    for bq, bf in zip(pq["down"], pf["down"]):
+        for j, (rq, rf) in enumerate(zip(bq["resnets"], bf["resnets"])):
+            h = resnet(rq, rf, h)
+            if "attentions" in bf:
+                h = transformer_2d(bf["attentions"][j], h, ctx, cfg.heads)
+            skips.append(h)
+        if "down" in bf:
+            h = cq(bq["down"], bf["down"], h, stride=2)
+            skips.append(h)
+
+    h = resnet(pq["mid"]["r0"], pf["mid"]["r0"], h)
+    h = transformer_2d(pf["mid"]["attn"], h, ctx, cfg.heads)
+    h = resnet(pq["mid"]["r1"], pf["mid"]["r1"], h)
+
+    for bq, bf in zip(pq["up"], pf["up"]):
+        for j, (rq, rf) in enumerate(zip(bq["resnets"], bf["resnets"])):
+            h = torch.cat([h, skips.pop()], dim=-1)
+            h = resnet(rq, rf, h)
+            if "attentions" in bf:
+                h = transformer_2d(bf["attentions"][j], h, ctx, cfg.heads)
+        if "up" in bf:
+            h = cq(bq["up"], bf["up"], upsample_nearest2x(h))
+
+    a_out = silu(group_norm(pf["norm_out"], h, eps=cfg.norm_eps))
+    return cq(pq["conv_out"], pf["conv_out"], a_out).float()
+
+
+def apply_int8(params_q: Params, cfg: UNetConfig, x: torch.Tensor, t: torch.Tensor,
+               ctx: torch.Tensor) -> torch.Tensor:
+    """int8 twin of ``apply``; params from ``quantize_unet`` (+ calibrate)."""
+    return _walk_int8(params_q, cfg, x, t, ctx)
+
+
+@torch.inference_mode()
+def calibrate_unet(params: Params, params_q: Params, cfg: UNetConfig, x: torch.Tensor,
+                   t: torch.Tensor, ctx: torch.Tensor) -> Params:
+    """Static activation scales from representative inputs: one
+    full-precision walk collecting every conv site's scale on the device,
+    one host copy, then the assignment in the walk's order (in place on
+    ``params_q``, which is returned)."""
+    rec: List[torch.Tensor] = []
+    _walk_int8(params_q, cfg, x, t, ctx, full=params, rec=rec)
+    scales = fetch_scales(rec, x.device)
+
+    def assign_resnet(rq):
+        rq["conv1"]["as"] = next(scales)
+        rq["conv2"]["as"] = next(scales)
+        if "conv_shortcut" in rq:
+            rq["conv_shortcut"]["as"] = next(scales)
+
+    params_q["conv_in"]["as"] = next(scales)
+    for bq in params_q["down"]:
+        for rq in bq["resnets"]:
+            assign_resnet(rq)
+        if "down" in bq:
+            bq["down"]["as"] = next(scales)
+    assign_resnet(params_q["mid"]["r0"])
+    assign_resnet(params_q["mid"]["r1"])
+    for bq in params_q["up"]:
+        for rq in bq["resnets"]:
+            assign_resnet(rq)
+        if "up" in bq:
+            bq["up"]["as"] = next(scales)
+    params_q["conv_out"]["as"] = next(scales)
+    leftover = sum(1 for _ in scales)
+    assert leftover == 0, f"scale walk/assign mismatch: {leftover} extra"
+    return params_q
 
 
 # ---------------------------------------------------------------------------

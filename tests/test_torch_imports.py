@@ -8,7 +8,8 @@
     ``jax``) cannot be imported, every module on that path still imports.
   - ``--device cuda`` on a host without a CUDA device raises at startup,
     and a CUDA request to the paste-back raises instead of running the
-    plain version; ``--model musetalk`` with an int8 flag raises.
+    plain version; ``--model musetalk``'s int8 flags reach the plugin's
+    warm-up instead of raising.
 """
 
 import ast
@@ -109,7 +110,7 @@ def test_smoke_path_covers_the_serving_modules():
                 "avatars.musetalk_avatar", "audio_features.whisper_features",
                 "engine.feature_coalescer", "models.musetalk", "models.sd_unet",
                 "models.sd_vae", "models.diffusion_blocks", "models.whisper_encoder",
-                "ops.attention", "ops.whisper_mel", "utils.synthetic"):
+                "ops.attention", "ops.conv", "ops.whisper_mel", "utils.synthetic"):
         assert f"{PKG}.{mod}" in SMOKE_PATH
     assert f"{PKG}.server.routes" not in SMOKE_PATH  # the HTTP server: aiohttp's
 
@@ -144,8 +145,9 @@ def test_device_cuda_without_a_card_raises_at_startup():
     assert "no CUDA device" in r.stderr
 
 
-def test_load_plugin_stack_checks_device_and_model():
+def test_load_plugin_stack_checks_device_and_model(monkeypatch):
     from livetalking_tpu_torch import app
+    from livetalking_tpu_torch.avatars import musetalk_avatar
     from livetalking_tpu_torch.config import default_opt
 
     if not torch.cuda.is_available():
@@ -153,9 +155,17 @@ def test_load_plugin_stack_checks_device_and_model():
             app.load_plugin_stack(default_opt(device="cuda"))
     with pytest.raises(ValueError, match="ROADMAP"):
         app.load_plugin_stack(default_opt(model="ultralight", device="cpu"))
-    for flag in ("vae_int8", "unet_int8"):  # never bf16 in place of int8
-        with pytest.raises(ValueError, match="int8 MuseTalk is not ported yet"):
-            app.load_plugin_stack(default_opt(model="musetalk", device="cpu", **{flag: True}))
+    # the int8 flags load and warm the int8 graph (never bf16 in its
+    # place); the plugin's own loading is stubbed out here
+    warmed = []
+    monkeypatch.setattr(musetalk_avatar, "load_model", lambda opt: {"stub": True})
+    monkeypatch.setattr(musetalk_avatar, "warm_up",
+                        lambda b, model, res, opt=None: warmed.append(opt))
+    monkeypatch.setitem(app.global_avatars, "int8_probe", {})
+    for flag in ("vae_int8", "unet_int8"):
+        opt = default_opt(model="musetalk", device="cpu", avatar_id="int8_probe", **{flag: True})
+        app.load_plugin_stack(opt)
+        assert warmed[-1] is opt and getattr(warmed[-1], flag)
 
 
 def test_paste_back_cuda_request_raises_without_a_card():

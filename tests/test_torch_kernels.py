@@ -1,6 +1,7 @@
 """The port's CUDA paths on the card: each kernel (rect and masked
-paste-back, attention) against its plain PyTorch version, and the
-scheduler's pinned device->host ring.
+paste-back, attention, the int8 3x3 conv and its bf16 twin, the fused
+GroupNorm-SiLU-quantize conv) against its plain PyTorch version, the exact
+int8 GEMM, and the scheduler's pinned device->host ring.
 
 Every test here needs a CUDA device and skips without one. The file
 imports nothing of JAX, so on a host without JAX it runs as
@@ -13,7 +14,7 @@ import pytest
 import torch
 
 from livetalking_tpu_torch.engine.scheduler import AvatarStore, BatchScheduler
-from livetalking_tpu_torch.ops import attention, blend
+from livetalking_tpu_torch.ops import attention, blend, conv
 
 S, H, W = 256, 480, 640
 
@@ -147,6 +148,130 @@ def test_attention_kernel_rejects_what_it_does_not_take(cuda):
     long = torch.zeros((1, 1, 8192, 64), device=cuda)
     with pytest.raises(ValueError):
         attention.attention(long, long, long, 1.0)  # score rows beyond shared memory
+
+
+def _ulps(got, want):
+    """Largest |got - want| in bf16 ulps of ``want``."""
+    w = want.float()
+    ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w).exponent - 8)
+    return float(((got.float() - w).abs() / ulp).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,Hh,Ww,C,O", [(16, 32, 32, 64, 320), (16, 32, 32, 320, 4),
+                                         (16, 8, 8, 2560, 1280), (16, 64, 64, 512, 512),
+                                         (3, 5, 7, 128, 96)])
+def test_conv3x3_q_kernel_matches_plain(cuda, B, Hh, Ww, C, O, out_dtype, residual):
+    """Bit-equal: both sum the int8 products exactly and round the same
+    f32 epilogue (MuseTalk's conv_in with C padded to 64, conv_out's O=4,
+    the widest U-Net site, a decoder site, and a ragged pixel count)."""
+    gen = torch.Generator(device=cuda).manual_seed(C + O)
+    xq = torch.randint(-127, 128, (B, Hh, Ww, C), device=cuda, generator=gen, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (O, 3, 3, C), device=cuda, generator=gen, dtype=torch.int8)
+    scale = torch.rand(O, device=cuda, generator=gen) * 1.5e-4 + 5e-5
+    bias = torch.randn(O, device=cuda, generator=gen)
+    res = (torch.randn((B, Hh, Ww, O), device=cuda, generator=gen).to(out_dtype)
+           if residual else None)
+    before = conv.conv3x3_q.launches
+    got = conv.conv3x3_q(xq, wq, scale, bias, residual=res, out_dtype=out_dtype)
+    want = conv.conv3x3_q_plain(xq, wq, scale, bias, residual=res, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert conv.conv3x3_q.launches == before + 1
+    assert got.dtype == out_dtype and got.shape == want.shape
+    assert torch.equal(got, want), f"{_ulps(got, want)} bf16 ulps apart"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Hh,C,O", [(16, 32, 512, 512), (2, 16, 96, 64)])
+def test_conv3x3_bf16_kernel_matches_plain(cuda, B, Hh, C, O):
+    """The reference's bars (rtol = atol = 2e-2) on signed inputs, and 1
+    bf16 ulp on positive inputs, where no sum cancels: the f32 sums run in
+    another order than the plain conv's and may round the last bf16 bit the
+    other way."""
+    gen = torch.Generator(device=cuda).manual_seed(Hh)
+    x = (torch.randn((B, Hh, Hh, C), device=cuda, generator=gen) * 0.3).to(torch.bfloat16)
+    w = (torch.randn((O, 3, 3, C), device=cuda, generator=gen) * 0.02).to(torch.bfloat16)
+    bias = torch.randn(O, device=cuda, generator=gen)
+    before = conv.conv3x3_bf16.launches
+    got = conv.conv3x3_bf16(x, w, bias)
+    want = conv.conv3x3_bf16_plain(x, w, bias)
+    torch.cuda.synchronize()
+    assert conv.conv3x3_bf16.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+    xp, wp, bp = x.abs(), w.abs(), bias.abs()
+    assert _ulps(conv.conv3x3_bf16(xp, wp, bp), conv.conv3x3_bf16_plain(xp, wp, bp)) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gn,residual,upsample", [(True, False, False), (True, True, False),
+                                                  (False, False, True), (True, False, True)])
+@pytest.mark.parametrize("B,Hh,C,O", [(16, 64, 512, 512), (2, 16, 64, 128), (2, 16, 128, 64)])
+def test_conv3x3_gnq_kernel_matches_plain(cuda, B, Hh, C, O, gn, residual, upsample):
+    """tests/test_pallas_conv.py's bars: y within atol max(2e-2, 4 max
+    out_scale) + rtol 1e-2, the moments within rtol 1e-3 + atol 1e-2 H W
+    (expf and the division may round differently from PyTorch's and flip
+    a quantized value next to a .5 step)."""
+    gen = torch.Generator(device=cuda).manual_seed(Hh + C + O)
+    Hs = Hh // 2 if upsample else Hh
+    x = torch.randn((B, Hs, Hs, C), device=cuda, generator=gen).to(torch.bfloat16)
+    gns = torch.rand((B, C), device=cuda, generator=gen) + 0.5 if gn else None
+    gnb = torch.randn((B, C), device=cuda, generator=gen) * 0.2 if gn else None
+    act = torch.tensor(0.011, device=cuda)
+    wq = torch.randint(-127, 128, (O, 3, 3, C), device=cuda, generator=gen, dtype=torch.int8)
+    osc = torch.rand(O, device=cuda, generator=gen) * 1.5e-4 + 5e-5
+    bias = torch.randn(O, device=cuda, generator=gen) * 0.1
+    res = (torch.randn((B, Hh, Hh, O), device=cuda, generator=gen).to(torch.bfloat16)
+           if residual else None)
+    args = (x, gns, gnb, act, wq, osc, bias, res)
+    before = conv.conv3x3_gnq.launches
+    y, s1, s2 = conv.conv3x3_gnq(*args, upsample=upsample)
+    yr, s1r, s2r = conv.conv3x3_gnq_plain(*args, upsample=upsample)
+    torch.cuda.synchronize()
+    assert conv.conv3x3_gnq.launches == before + 1
+    assert y.dtype == torch.bfloat16 and y.shape == (B, Hh, Hh, O)
+    torch.testing.assert_close(y.float(), yr.float(), rtol=1e-2,
+                               atol=max(2e-2, 4 * float(osc.max())))
+    for got, want in ((s1, s1r), (s2, s2r)):
+        torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-2 * Hh * Hh)
+
+
+@pytest.mark.cuda
+def test_conv_kernels_reject_what_they_do_not_take(cuda):
+    xq = torch.zeros((1, 8, 16, 64), dtype=torch.int8, device=cuda)
+    wq = torch.zeros((64, 3, 3, 64), dtype=torch.int8, device=cuda)
+    v = torch.zeros(64, device=cuda)
+    act = torch.tensor(1.0, device=cuda)
+    before = (conv.conv3x3_q.launches, conv.conv3x3_gnq.launches)
+    with pytest.raises(ValueError):
+        conv.conv3x3_q(xq[..., :32], wq[..., :32], v, v)  # C not a multiple of 64
+    with pytest.raises(ValueError):
+        conv.conv3x3_q(xq, wq, v.double(), v)
+    with pytest.raises(ValueError):
+        conv.conv3x3_q(xq, wq.cpu(), v, v)
+    with pytest.raises(ValueError):
+        conv.conv3x3_q(xq.transpose(1, 2), wq, v, v)
+    xb = torch.zeros((1, 8, 12, 64), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):
+        conv.conv3x3_gnq(xb, None, None, act, wq, v, v)  # H*W not a multiple of 128
+    with pytest.raises(ValueError):
+        conv.conv3x3_gnq(xb[:, :, :8].contiguous().float(), None, None, act, wq, v, v)
+    with pytest.raises(ValueError):
+        conv.conv3x3_gnq(torch.zeros((1, 8, 16, 64), dtype=torch.bfloat16, device=cuda),
+                         v[None], None, act, wq, v, v)  # scale without shift
+    assert (conv.conv3x3_q.launches, conv.conv3x3_gnq.launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(8, 64, 64), (17, 64, 64), (4096, 2880, 320)])
+def test_int8_matmul_is_exact_on_the_card(cuda, M, K, N):
+    gen = torch.Generator(device=cuda).manual_seed(M)
+    a = torch.randint(-127, 128, (M, K), device=cuda, generator=gen, dtype=torch.int8)
+    w = torch.randint(-127, 128, (N, K), device=cuda, generator=gen, dtype=torch.int8)
+    got = conv.int8_matmul(a, w)
+    assert got.dtype == torch.int32 and got.shape == (M, N)
+    assert torch.equal(got.cpu().long(), a.cpu().long() @ w.cpu().long().t())
 
 
 @pytest.mark.cuda

@@ -1,8 +1,8 @@
 """The port's MuseTalk serving path on the CPU: two coalesced sessions end
 to end (dummy TTS -> Whisper features through the shared feature coalescer
 -> U-Net step -> VAE decode -> masked paste-back inside the scheduler's
-step -> full frames out), the per-session paths, and the flags that must
-raise.
+step -> full frames out), the per-session paths, the int8 flags, and the
+configurations that must raise.
 
 The U-Net is the tiny test configuration and the VAE a narrow one
 (channels (32, 32, 64, 64), the recomposed ``TorchVAE`` of
@@ -26,6 +26,7 @@ from livetalking_tpu_torch.engine.scheduler import SchedulerConfigError
 from livetalking_tpu_torch.models import sd_vae
 from livetalking_tpu_torch.ops import attention, blend
 from livetalking_tpu_torch.utils import synthetic
+from livetalking_tpu_torch.utils.image import mirror_indices
 from test_sd_converters import TorchVAE, _init
 
 H, W = 480, 640
@@ -161,14 +162,46 @@ def test_device_paste_back_bucket_wider_than_frame_raises(model):
 
 @pytest.mark.parametrize("flag", ["vae_int8", "unet_int8"])
 def test_int8_flags_raise_instead_of_serving_bf16(model, flag):
+    """Each int8 flag serves int8, never the full-precision trees in its
+    place: warm_up runs the int8 graph, the session's step runs the trees
+    it quantized and calibrated (static scales at every conv site), its
+    faces differ from the full-precision step's, and a second session
+    asking for other int8 flags raises instead of being served them."""
+    m = dict(model)  # the quantized trees are cached in the model dict
     opt = _opt("q", **{flag: True})
-    with pytest.raises(SchedulerConfigError, match="int8 MuseTalk is not ported yet"):
-        plugin.load_model(opt)
-    with pytest.raises(ValueError, match="ROADMAP slice 3"):
-        registry.create("avatar", "musetalk", model=model, avatar=_avatar(model, "q", 2, 3),
-                        opt=opt)
-    with pytest.raises(ValueError, match="int8"):
-        plugin.warm_up(2, model, opt=opt)
+    plugin.warm_up(1, m, opt=opt)  # the int8 graph; batch 1 keeps the CPU test short
+    avatar = _avatar(m, "q", 2, 3)
+    sess = registry.create("avatar", "musetalk", model=m, avatar=avatar, opt=opt)
+    vae_q = flag == "vae_int8"
+    q_tree, fp_tree = ((sess._vae_params, sess._unet_params) if vae_q
+                       else (sess._unet_params, sess._vae_params))
+    assert q_tree is m["vae_params_q" if vae_q else "unet_params_q"]
+    assert fp_tree is m["unet_params" if vae_q else "vae_params"]
+    site = q_tree["dec_up"][0]["resnets"][0]["conv1"] if vae_q else q_tree["conv_in"]
+    assert site["wq"].dtype == torch.int8 and "as" in site
+    feats = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 50, 384))
+                             .astype(np.float32))
+    out = sess.inference_batch(1, feats)
+    assert out.shape == (2, 256, 256, 3) and out.dtype == np.uint8
+    full = plugin.mt.make_infer_fn(m["unet_cfg"], 2, dtype=torch.float32)(
+        m["unet_params"], m["vae_params"], avatar["latent_cycle_device"],
+        torch.from_numpy(mirror_indices(2, 1, 2)), feats)
+    assert not np.array_equal(out, full.numpy())
+    other = {"vae_mid_int8": 0} if vae_q else {"attn_int8": 0}
+    with pytest.raises(SchedulerConfigError, match="int8 flag"):
+        registry.create("avatar", "musetalk", model=m, avatar=avatar,
+                        opt=_opt("q2", **{flag: True}, **other))
+
+
+def test_quant_flag_cache_mismatch_rejected():
+    """The shared quantized trees are keyed by the flags that made them: a
+    match passes, another flag raises, trees installed without a record
+    are accepted."""
+    m = {"unet_q_flags": {"attn_int8": True}}
+    plugin._check_quant_flags(m, "unet_q_flags", {"attn_int8": True})
+    with pytest.raises(SchedulerConfigError, match="int8 flag"):
+        plugin._check_quant_flags(m, "unet_q_flags", {"attn_int8": False})
+    plugin._check_quant_flags({}, "unet_q_flags", {"attn_int8": False})
 
 
 def test_conflicting_session_config_is_rejected(model):
@@ -177,6 +210,9 @@ def test_conflicting_session_config_is_rejected(model):
         plugin.get_shared_scheduler(model, 2, buckets=(1, 2))
         with pytest.raises(SchedulerConfigError):
             plugin.get_shared_scheduler(model, 4, buckets=(1, 2))
+        for flag in ("vae_int8", "unet_int8"):  # the step is built for the first's flags
+            with pytest.raises(SchedulerConfigError):
+                plugin.get_shared_scheduler(model, 2, buckets=(1, 2), **{flag: True})
         plugin.get_shared_feature_coalescer(model, _opt("a"))
         with pytest.raises(SchedulerConfigError):
             plugin.get_shared_feature_coalescer(model, _opt("b", whisper_short_window=False))
