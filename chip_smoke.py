@@ -20,8 +20,9 @@ Whisper-tiny) in bf16 and in W8A8 int8 at batch 16.
   5. attention  — the attention kernel against its plain version at every
                   shape a MuseTalk step gives it, B=16, bf16 (atol 2e-2, and
                   per element 2 bf16 ulps + 4e-3) and f32 (atol 2e-5); the
-                  T=1024 shapes also at the engine's B=64 and 128, and one
-                  T % 16 == 8 shape; beside it PyTorch's
+                  T=1024 shapes also at the engine's B=64 and 128, one
+                  T % 16 == 8 shape and T = 1000 and 72 (ragged tiles);
+                  share of the bound per shape; beside it PyTorch's
                   ``scaled_dot_product_attention`` as the yardstick only.
   6. conv_int8  — the int8 3x3 conv kernel against its plain version at every
                   3x3 stride-1 int8 site of a B=16 MuseTalk int8 step (U-Net
@@ -109,9 +110,11 @@ TC_ATOL, TC_ULPS = 4e-3, 2
 ATTN_SHAPES = [(1024, 40, 8, 5), (256, 80, 8, 5), (64, 160, 8, 5), (16, 160, 8, 1),
                (1024, 512, 1, 1)]
 # checked only: the super-batch sizes the engine runs (16 x buckets 4 and 8)
-# at the two T=1024 sites, and T % 16 == 8, where the last key tile is half
+# at the two T=1024 sites, T % 16 == 8, and T = 1000 and 72, where the bf16
+# kernels' last query and key tiles are partly past T
 ATTN_CHECK_ONLY = [(64, 8, 1024, 40), (128, 8, 1024, 40), (64, 1, 1024, 512),
-                   (128, 1, 1024, 512), (16, 8, 1016, 40)]
+                   (128, 1, 1024, 512), (16, 8, 1016, 40), (2, 3, 1000, 40), (3, 2, 72, 40),
+                   (2, 1, 1000, 512)]
 
 
 def log(phase: str, **kw) -> None:
@@ -355,12 +358,13 @@ def phase_attention(torch, attn, peak_bw: float, peak_bf16: float, exp_rate: flo
                        "bound_ms": b_ms, "bound_by": b_by})
         log("attention", shape=f"{B}x{heads}x{T}x{D}", per_step=per_step, kernel_ms=f"{ms:.4f}",
             plain_ms=f"{plain_ms:.4f}", library_ms=f"{lib_ms:.4f}", bound_ms=f"{b_ms:.5f}",
-            bound_by=b_by, bytes_ms=f"{t_bytes:.5f}", mma_ms=f"{t_mma:.5f}",
-            exp_ms=f"{t_exp:.5f}")
+            bound_by=b_by, share_of_bound=f"{b_ms / ms:.3f}", bytes_ms=f"{t_bytes:.5f}",
+            mma_ms=f"{t_mma:.5f}", exp_ms=f"{t_exp:.5f}")
     step["bound_by"] = "bytes" if step["bytes"] > step["operations"] else "operations"
     log("attention", per_musetalk_step="17 launches", kernel_ms=f"{step['ms']:.4f}",
         plain_ms=f"{step['plain_ms']:.4f}", library_ms=f"{step['library_ms']:.4f}",
         bound_ms=f"{step['bound_ms']:.4f}", bound_by=step["bound_by"],
+        share_of_bound=f"{step['bound_ms'] / step['ms']:.3f}",
         max_abs_err_f32=err["float32"], max_abs_err_bf16=err["bfloat16"],
         bf16_margin_to_bar=-err["bf16_over_bar"])
     return {"max_abs_err": max(err["float32"], err["bfloat16"]), "step": step,

@@ -4,8 +4,10 @@
 MuseTalk's latent U-Net runs self-attention over T = H*W latent tokens
 (1024, 256, 64 and 16 at its four levels, 8 heads) and the VAE mid-blocks
 over 1024 tokens in one 512-wide head. ``attention`` is the wrapper of
-``csrc/attention.cu``: per (batch, head) the full score rows of a tile of
-query rows live in shared memory, so the softmax is exact. On CPU tensors
+``csrc/attention.cu``: bf16 runs on the tensor cores in two passes over
+the key tiles (row max and sum, then the probabilities divided by the
+exact sum and rounded before the product with v), f32 on the CUDA cores
+with full score rows in shared memory; the softmax is exact. On CPU tensors
 it runs ``attention_plain``, the same arithmetic in plain PyTorch; on CUDA
 tensors it launches the kernel (counted in ``attention.launches``) or
 raises.
@@ -14,7 +16,8 @@ Layout (B, H, T, D) for q, k, v and the output. Numerics as the reference:
 f32 scores and softmax, probabilities rounded to v's dtype, f32 sums for
 the product with v, output in v's dtype. The reference's TPU sizing (a
 T >= 512 gate, 128-lane head-dim padding) has no counterpart here: the
-kernel runs at every T and every D <= 512.
+bf16 kernels run at every T and every D <= 512; the f32 kernel's T is
+bounded by the shared memory its score rows take (the wrapper raises).
 """
 
 from __future__ import annotations
@@ -52,7 +55,7 @@ def _library():
     lib.attention_launch.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
                                      + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.attention_launch.restype = ctypes.c_int
-    lib.attention_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.attention_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.attention_smem_bytes.restype = ctypes.c_int
     return lib
 
@@ -89,7 +92,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_kernel_args(q, k, v)
     B, H, T, D = q.shape
     lib = _library()
-    smem = lib.attention_smem_bytes(T, D, _DTYPES[q.dtype])
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v))  # o is a fresh allocation
+    smem = lib.attention_smem_bytes(T, D, _DTYPES[q.dtype], int(aligned))
     if smem > _SMEM_LIMIT:
         raise ValueError(f"attention kernel: T={T}, D={D} needs {smem} bytes of shared "
                          f"memory, more than {_SMEM_LIMIT}")

@@ -46,10 +46,11 @@ __all__ = ["conv3x3_q", "conv3x3_q_plain", "conv3x3_bf16", "conv3x3_bf16_plain",
 # the kernels stage the K dimension 64 bytes at a time, one 3x3 tap at a
 # time: int8 inputs need C % 64 == 0, bf16 inputs C % 32 == 0
 CHANNEL_MULTIPLE = 64
-# output pixels per block; kernel 5 reduces its moments per block, so a
-# block must not straddle two images: H*W % BLOCK_M == 0
+# output pixels per block of kernel 4 (kernel 5 tiles 8 x 16 of them); the
+# reference's shape rule for kernel 5 also asks H*W % BLOCK_M == 0
 BLOCK_M = 128
 _OUT = {torch.float32: 0, torch.bfloat16: 1}
+_SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
 
 
 def _conv_exact(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
@@ -161,6 +162,10 @@ def _library():
                                        + [ctypes.c_void_p])
     lib.conv3x3_gnq_launch.restype = ctypes.c_int
     lib.conv_block_m.restype = ctypes.c_int
+    lib.conv3x3_gnq_tiles.argtypes = [ctypes.c_int] * 2
+    lib.conv3x3_gnq_tiles.restype = ctypes.c_int
+    lib.conv3x3_gnq_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.conv3x3_gnq_smem_bytes.restype = ctypes.c_int
     if lib.conv_block_m() != BLOCK_M:
         raise RuntimeError(f"csrc/conv.cu tiles {lib.conv_block_m()} pixels, "
                            f"ops/conv.py expects {BLOCK_M}")
@@ -276,7 +281,7 @@ def conv3x3_gnq(x: torch.Tensor, gn_scale: Optional[torch.Tensor],
 
     CPU tensors run ``conv3x3_gnq_plain``; CUDA tensors launch the kernel
     (counted in ``conv3x3_gnq.launches``) or raise. The kernel writes
-    per-block partial moments (no atomics); they are summed here, so the
+    per-tile partial moments (no atomics); they are summed here, so the
     result does not depend on the order blocks run in."""
     if x.device.type == "cpu":
         return conv3x3_gnq_plain(x, gn_scale, gn_shift, act_scale, wq, out_scale, bias,
@@ -303,11 +308,16 @@ def conv3x3_gnq(x: torch.Tensor, gn_scale: Optional[torch.Tensor],
         _check("gn_shift", gn_shift, dev, torch.float32, (B, C))
     if residual is not None:
         _check("residual", residual, dev, torch.bfloat16, (B, H, W, O))
-    tiles = H * W // BLOCK_M
+    lib = _library()
+    smem = lib.conv3x3_gnq_smem_bytes(C, O, int(upsample))
+    if smem > _SMEM_LIMIT or B > 65535:
+        raise ValueError(f"conv3x3_gnq kernel: C={C} needs {smem} bytes of shared memory "
+                         f"(at most {_SMEM_LIMIT}), B={B} (at most 65535)")
+    tiles = lib.conv3x3_gnq_tiles(H, W)
     y = torch.empty((B, H, W, O), dtype=torch.bfloat16, device=dev)
     part = torch.empty((2, B, tiles, O), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        err = _library().conv3x3_gnq_launch(
+        err = lib.conv3x3_gnq_launch(
             x.data_ptr(), _ptr(gn_scale), _ptr(gn_shift), act_scale.data_ptr(),
             wq.data_ptr(), out_scale.data_ptr(), bias.data_ptr(), _ptr(residual),
             y.data_ptr(), part.data_ptr(), B, H, W, C, O, int(upsample),

@@ -134,6 +134,34 @@ def test_attention_kernel_matches_plain(cuda, shape, dtype, atol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape", [(2, 3, 1000, 40), (3, 2, 72, 40), (2, 1, 1000, 512)])
+def test_attention_kernel_ragged_tiles_match_plain(cuda, shape, dtype, atol):
+    """T not a multiple of the bf16 kernels' query and key tiles (128 rows
+    and 64 keys at D = 40, 64 rows and 16 keys at D = 512): the last query
+    tile is partly past T and the last key tile's missing keys must weigh
+    nothing. q and k have means +1 and -1, so every real score lies well
+    below 0, the score of a zero-filled missing key: one that leaked into
+    the softmax would dominate it. Same bars as above."""
+    gen = torch.Generator(device=cuda).manual_seed(shape[2] + shape[3])
+    q, k, v = (torch.randn(shape, device=cuda, generator=gen) for _ in range(3))
+    q, k, v = (q + 1).to(dtype), (k - 1).to(dtype), v.to(dtype)
+    scale = shape[-1] ** -0.5
+    before = attention.attention.launches
+    got = attention.attention(q, k, v, scale)
+    want = attention.attention_plain(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert attention.attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    d = (got.float() - want.float()).abs()
+    assert float(d.max()) <= atol
+    if dtype == torch.bfloat16:
+        w = want.float()
+        ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w).exponent - 8)
+        assert bool((d <= 2 * ulp + 4e-3).all())
+
+
+@pytest.mark.cuda
 def test_attention_kernel_rejects_what_it_does_not_take(cuda):
     q = torch.zeros((1, 2, 64, 32), device=cuda)
     with pytest.raises(ValueError):
@@ -235,6 +263,42 @@ def test_conv3x3_gnq_kernel_matches_plain(cuda, B, Hh, C, O, gn, residual, upsam
                                atol=max(2e-2, 4 * float(osc.max())))
     for got, want in ((s1, s1r), (s2, s2r)):
         torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-2 * Hh * Hh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gn,residual,upsample", [(True, True, False), (False, False, True),
+                                                  (True, False, True)])
+@pytest.mark.parametrize("B,Hh,Ww,C,O", [(3, 8, 16, 64, 64), (2, 16, 24, 128, 64),
+                                         (2, 16, 8, 192, 192)])
+def test_conv3x3_gnq_kernel_tile_edges_match_plain(cuda, B, Hh, Ww, C, O, gn, residual,
+                                                  upsample):
+    """The kernel's 8 x 16 output tiles at the image borders: one tile that
+    is the whole 8 x 16 image and touches all four borders, tiles cut by
+    the right edge (W = 24, and W = 8 below the tile's width), several
+    images per launch, O = 64 and three 64-channel output tiles (O = 192),
+    and the upsample mode's source-space halo. Same bars as above."""
+    gen = torch.Generator(device=cuda).manual_seed(B + Hh + Ww + C + O)
+    Hs, Ws = (Hh // 2, Ww // 2) if upsample else (Hh, Ww)
+    x = torch.randn((B, Hs, Ws, C), device=cuda, generator=gen).to(torch.bfloat16)
+    gns = torch.rand((B, C), device=cuda, generator=gen) + 0.5 if gn else None
+    gnb = torch.randn((B, C), device=cuda, generator=gen) * 0.2 if gn else None
+    act = torch.tensor(0.011, device=cuda)
+    wq = torch.randint(-127, 128, (O, 3, 3, C), device=cuda, generator=gen, dtype=torch.int8)
+    osc = torch.rand(O, device=cuda, generator=gen) * 1.5e-4 + 5e-5
+    bias = torch.randn(O, device=cuda, generator=gen) * 0.1
+    res = (torch.randn((B, Hh, Ww, O), device=cuda, generator=gen).to(torch.bfloat16)
+           if residual else None)
+    args = (x, gns, gnb, act, wq, osc, bias, res)
+    before = conv.conv3x3_gnq.launches
+    y, s1, s2 = conv.conv3x3_gnq(*args, upsample=upsample)
+    yr, s1r, s2r = conv.conv3x3_gnq_plain(*args, upsample=upsample)
+    torch.cuda.synchronize()
+    assert conv.conv3x3_gnq.launches == before + 1
+    assert y.dtype == torch.bfloat16 and y.shape == (B, Hh, Ww, O)
+    torch.testing.assert_close(y.float(), yr.float(), rtol=1e-2,
+                               atol=max(2e-2, 4 * float(osc.max())))
+    for got, want in ((s1, s1r), (s2, s2r)):
+        torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-2 * Hh * Ww)
 
 
 @pytest.mark.cuda
