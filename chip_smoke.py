@@ -10,7 +10,9 @@ Whisper-tiny) in bf16 and in W8A8 int8 at batch 16.
 
   1. device     — ``nvidia-smi`` name and power limit; compute capability 9.0.
   2. build      — every kernel under ``livetalking_tpu_torch/csrc``, one nvcc
-                  per source, all at once.
+                  per source, all at once; beside it ``nvcc -Xptxas -v`` on
+                  ``conv.cu`` prints each kernel's registers, shared memory
+                  and spills.
   3. blend      — the rect paste-back kernel against its plain version on
                   480x640 frames, a 240x256 bucket, B in {16, 128}, feather in
                   {0, 9}: at most 1 LSB apart, byte-identical outside the bbox.
@@ -28,8 +30,13 @@ Whisper-tiny) in bf16 and in W8A8 int8 at batch 16.
                   3x3 stride-1 int8 site of a B=16 MuseTalk int8 step (U-Net
                   and unfused decoder, 80 launches): bf16 bit-equal; the
                   residual epilogue; the bf16 twin (rtol = atol = 2e-2, and
-                  1 bf16 ulp on positive inputs); cuDNN's bf16 conv of each
-                  shape printed as context only.
+                  1 bf16 ulp on positive inputs). Per shape its K split and
+                  blocks, ``ms`` (an event pair around each call) and
+                  ``device_ms`` (20 launches queued behind ``torch.cuda._sleep``,
+                  the card's own time), each against the bound; cuDNN's bf16
+                  conv and ``torch._int_mm``'s GEMM of the shape as context
+                  only; sums per unfused (80) and fused (59) step; the
+                  wrapper's host time per call at the 4x4 site.
   7. gnq        — the fused GroupNorm-SiLU-quantize conv kernel against its
                   plain version at every site of the fused B=16 decode (21
                   launches), at tests/test_pallas_conv.py's bars.
@@ -168,6 +175,45 @@ def make_avatar(plugin, avatar_id: str, n: int, seed: int, device: str):
                                             align_corners=False)
     faces = faces.round().clamp(0, 255).to(torch.uint8).permute(0, 2, 3, 1).numpy()
     return plugin.avatar_from_arrays(avatar_id, frames, faces, [BOX] * n, device=device)
+
+
+def start_ptxas_report(_build, source: str = "conv"):
+    """Compile ``csrc/<source>.cu`` to a cubin with ``-Xptxas -v`` beside the
+    build (same flags); ``log_ptxas_report`` prints each kernel's registers,
+    shared memory and spills."""
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    out = _build.build_dir() / f"{source}.ptxas.cubin"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    cmd = [_build._nvcc(), *flags, "-cubin", "-Xptxas", "-v", "-o", str(out),
+           str(_build.CSRC / f"{source}.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def log_ptxas_report(proc) -> None:
+    import re
+
+    text, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise AssertionError(f"nvcc -Xptxas -v failed:\n{text}")
+    name = None
+    info = {}
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            info[name] = {}
+        elif name:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                info[name]["spill_stores"], info[name]["spill_loads"] = m.groups()
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                info[name]["registers"] = m.group(1)
+            m = re.search(r"(\d+) bytes smem", line)
+            if m:
+                info[name]["static_smem_bytes"] = m.group(1)
+    for fn, kv in info.items():
+        log("ptxas", kernel=fn, **kv)
 
 
 def phase_blend(torch, blend, peak_bw: float, peak_f32: float) -> dict:
@@ -430,23 +476,104 @@ def ulps_apart(torch, got, want) -> float:
     return float(((got.float() - w).abs() / ulp).max())
 
 
-def phase_conv_int8(torch, conv, sd_unet, sd_vae, peak_bw: float, peak_int8: float) -> dict:
+def device_ms(torch, fn, clock_hz: float, n: int = 20, reps: int = 3) -> float:
+    """The card's own time per call of ``fn``: ``n`` calls queued behind
+    ``torch.cuda._sleep``, long enough that the host has queued all ``n``
+    before the card reaches them, one event pair around the ``n``; the
+    median of ``reps`` such runs. A run whose queueing outlasted the sleep
+    is repeated with a longer sleep."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    sleep_s = 2 * (time.perf_counter() - t0) + 5e-4
+    torch.cuda.synchronize()
+    times = []
+    while len(times) < reps:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(sleep_s * clock_hz))
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        queued = time.perf_counter() - t0
+        end.synchronize()
+        if queued > 0.8 * sleep_s:
+            sleep_s *= 2
+            continue
+        times.append(start.elapsed_time(end) / n)
+    return float(np.median(times))
+
+
+def host_us_per_call(torch, fn, n: int = 100) -> float:
+    """Host time per call of ``fn`` in microseconds: the host clock around
+    ``n`` calls, then one synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def int8_gemm_ms(torch, xq, wq) -> float:
+    """``torch._int_mm`` on the conv's (M, 9C) x (9C, O) product, the patch
+    matrix built outside the timed region (O padded to a multiple of 8, as
+    the GEMM asks). Context only: it leaves out the im2col and the epilogue."""
+    from torch.nn import functional as F
+
+    B, Hh, Ww, C = xq.shape
+    O = wq.shape[0]
+    xp = F.pad(xq, (0, 0, 1, 1, 1, 1))
+    patches = torch.cat([xp[:, dy:dy + Hh, dx:dx + Ww] for dy in range(3) for dx in range(3)],
+                        dim=-1).reshape(B * Hh * Ww, 9 * C)
+    w2 = wq.reshape(O, 9 * C)
+    if O % 8:
+        w2 = F.pad(w2, (0, 0, 0, 8 - O % 8))
+    ms = cuda_ms(lambda: torch._int_mm(patches, w2.t()), warmup=3, iters=20)
+    del patches, xp
+    return ms
+
+
+def phase_conv_int8(torch, conv, sd_unet, sd_vae, peak_bw: float, peak_int8: float,
+                    clock_hz: float) -> dict:
     """Kernel 4 against its plain version at every 3x3 stride-1 int8 site
     of a B=16 step (U-Net, and the int8 decoder through the unfused route:
-    80 launches), bf16 bit-equal; timed against its bound, with cuDNN's bf16
-    conv of the same shape beside it as context only. The bf16 twin and
-    the residual epilogue are checked at one VAE shape each."""
+    80 launches), bf16 bit-equal; timed against its bound two ways: ``ms``
+    (``cuda_ms``, an event pair around each call, host time included where
+    the card waits for it) and ``device_ms`` (the card's own time per
+    launch), with the kernel's split and block count, and as context only
+    cuDNN's bf16 conv and ``torch._int_mm``'s int8 GEMM of the same shape.
+    Sums per unfused step (80 sites) and per fused step (59: the U-Net's 49
+    and the decoder's 10 at 32 px); the wrapper's host time per call at the
+    4x4 site. The bf16 twin and the residual epilogue are checked at one VAE
+    shape each. With a ``conv`` module that has no ``conv3x3_plan`` (an
+    earlier kernel, measured in the same call for comparison) the split
+    prints as n/a."""
     from torch.nn import functional as F
 
     B = 16
     k4, _ = vae_conv_sites(sd_vae)
-    sites = collections.Counter(unet_conv_sites(sd_unet, sd_unet.MUSETALK))
+    k4_fused, _ = vae_conv_sites(sd_vae, fused=True)
+    unet = unet_conv_sites(sd_unet, sd_unet.MUSETALK)
+    sites = collections.Counter(unet)
     sites.update(k4)
-    if sum(sites.values()) != 80:
-        raise AssertionError(f"{sum(sites.values())} int8 3x3 sites per step, want 80")
+    fused = collections.Counter(unet)
+    fused.update(k4_fused)
+    if sum(sites.values()) != 80 or sum(fused.values()) != 59:
+        raise AssertionError(f"{sum(sites.values())} int8 3x3 sites per unfused step (want 80), "
+                             f"{sum(fused.values())} per fused step (want 59)")
+    plan = getattr(conv, "conv3x3_plan", None)
     gen = torch.Generator(device="cuda").manual_seed(7)
     step = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "cudnn_bf16_ms": 0.0,
-            "bytes": 0.0, "operations": 0.0}
+            "int8_gemm_ms": 0.0, "device_ms": 0.0, "bytes": 0.0, "operations": 0.0}
+    fused_step = {"device_ms": 0.0, "ms": 0.0, "bound_ms": 0.0}
+    host_us = None
     for (Hh, C, O), n in sorted(sites.items()):
         xq = torch.randint(-127, 128, (B, Hh, Hh, C), device="cuda", generator=gen,
                            dtype=torch.int8)
@@ -460,8 +587,15 @@ def phase_conv_int8(torch, conv, sd_unet, sd_vae, peak_bw: float, peak_int8: flo
         if not torch.equal(got, want):
             raise AssertionError(f"conv3x3_q {(B, Hh, Hh, C, O)}: {ulps_apart(torch, got, want)} "
                                  "bf16 ulps from the plain version, want bit-equal")
-        ms = cuda_ms(lambda: conv.conv3x3_q(xq, wq, scale, bias), warmup=3, iters=20)
+        run = lambda: conv.conv3x3_q(xq, wq, scale, bias)  # noqa: E731
+        ms = cuda_ms(run, warmup=3, iters=20)
+        dev_ms = device_ms(torch, run, clock_hz)
+        if Hh == 4 and host_us is None:
+            host_us = host_us_per_call(torch, run)
+            log("conv_int8", shape=f"{B}x{Hh}x{Hh}x{C}->{O}",
+                wrapper_host_us_per_call=f"{host_us:.2f}")
         plain_ms = cuda_ms(lambda: conv.conv3x3_q_plain(xq, wq, scale, bias), warmup=1, iters=3)
+        gemm_ms = int8_gemm_ms(torch, xq, wq)
         xb = torch.randn((B, C, Hh, Hh), device="cuda", generator=gen, dtype=torch.bfloat16)
         xb = xb.contiguous(memory_format=torch.channels_last)
         wb = torch.randn((O, C, 3, 3), device="cuda", generator=gen, dtype=torch.bfloat16)
@@ -473,13 +607,22 @@ def phase_conv_int8(torch, conv, sd_unet, sd_vae, peak_bw: float, peak_int8: flo
         ops = 2 * M * 9 * C * O
         b_ms, b_by = bound(nbytes / peak_bw * 1e3, ops / peak_int8 * 1e3)
         for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
-                         ("cudnn_bf16_ms", cudnn_ms)):
+                         ("cudnn_bf16_ms", cudnn_ms), ("int8_gemm_ms", gemm_ms),
+                         ("device_ms", dev_ms)):
             step[key] += n * val
         step[b_by] += n * b_ms
-        log("conv_int8", shape=f"{B}x{Hh}x{Hh}x{C}->{O}", per_step=n, kernel_ms=f"{ms:.4f}",
+        nf = fused.get((Hh, C, O), 0)
+        for key, val in (("device_ms", dev_ms), ("ms", ms), ("bound_ms", b_ms)):
+            fused_step[key] += nf * val
+        pl = plan(B, Hh, Hh, C, O) if plan else None
+        log("conv_int8", shape=f"{B}x{Hh}x{Hh}x{C}->{O}", per_step=n, per_fused_step=nf,
+            splits=pl.splits if pl else "n/a", units=pl.units if pl else "n/a",
+            blocks=pl.grid if pl else "n/a", halo=pl.halo if pl else "n/a",
+            bn=pl.bn if pl else "n/a", kernel_ms=f"{ms:.4f}", device_ms=f"{dev_ms:.4f}",
             plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b_ms:.5f}", bound_by=b_by,
-            share_of_bound=f"{b_ms / ms:.3f}", cudnn_bf16_ms=f"{cudnn_ms:.4f}", bit_equal=True)
-        del xq, wq, xb, wb, got, want
+            share_of_bound=f"{b_ms / ms:.3f}", device_share_of_bound=f"{b_ms / dev_ms:.3f}",
+            int8_gemm_ms=f"{gemm_ms:.4f}", cudnn_bf16_ms=f"{cudnn_ms:.4f}", bit_equal=True)
+        del xq, wq, xb, wb, got, want, run
         torch.cuda.empty_cache()
 
     # the residual epilogue and the bf16 twin, at the 128 px 256-channel site
@@ -518,10 +661,17 @@ def phase_conv_int8(torch, conv, sd_unet, sd_vae, peak_bw: float, peak_int8: flo
         bf16_twin_ms=f"{twin_ms:.4f}", bf16_twin_shape=f"{B}x{Hh}x{Hh}x{C}->{O}")
     step["bound_by"] = "bytes" if step["bytes"] > step["operations"] else "operations"
     log("conv_int8", per_musetalk_int8_step="80 launches", kernel_ms=f"{step['ms']:.4f}",
-        plain_ms=f"{step['plain_ms']:.4f}", bound_ms=f"{step['bound_ms']:.4f}",
-        bound_by=step["bound_by"], cudnn_bf16_ms=f"{step['cudnn_bf16_ms']:.4f}",
-        library_ms=NO_INT8_CONV)
-    return {"max_abs_err": 0.0, "step": step}
+        device_ms=f"{step['device_ms']:.4f}", plain_ms=f"{step['plain_ms']:.4f}",
+        bound_ms=f"{step['bound_ms']:.4f}", bound_by=step["bound_by"],
+        share_of_bound=f"{step['bound_ms'] / step['ms']:.3f}",
+        device_share_of_bound=f"{step['bound_ms'] / step['device_ms']:.3f}",
+        cudnn_bf16_ms=f"{step['cudnn_bf16_ms']:.4f}",
+        int8_gemm_ms=f"{step['int8_gemm_ms']:.4f}", library_ms=NO_INT8_CONV)
+    log("conv_int8", per_fused_int8_step="59 launches", kernel_ms=f"{fused_step['ms']:.4f}",
+        device_ms=f"{fused_step['device_ms']:.4f}", bound_ms=f"{fused_step['bound_ms']:.4f}",
+        device_share_of_bound=f"{fused_step['bound_ms'] / fused_step['device_ms']:.3f}",
+        wrapper_host_us_per_call_4x4=f"{host_us:.2f}")
+    return {"max_abs_err": 0.0, "step": step, "fused_step": fused_step}
 
 
 def phase_gnq(torch, conv, sd_vae, peak_bw: float, peak_f32: float, peak_int8: float) -> dict:
@@ -1169,13 +1319,16 @@ def main(argv) -> int:
         return out
 
     t0 = time.time()
+    ptxas = start_ptxas_report(_build)
     libs = _build.build_all()
     log("build", seconds=f"{time.time() - t0:.2f}", libs=sorted(libs))
+    log_ptxas_report(ptxas)
 
     b = timed("blend", phase_blend, torch, blend, peak_bw, peak_f32)
     bm = timed("blend_mask", phase_blend_mask, torch, blend, synthetic, peak_bw, peak_f32)
     at = timed("attention", phase_attention, torch, attention, peak_bw, peak_bf16, exp_rate)
-    k4 = timed("conv_int8", phase_conv_int8, torch, conv, sd_unet, sd_vae, peak_bw, peak_int8)
+    k4 = timed("conv_int8", phase_conv_int8, torch, conv, sd_unet, sd_vae, peak_bw, peak_int8,
+               clock_mhz * 1e6)
     k5 = timed("gnq", phase_gnq, torch, conv, sd_vae, peak_bw, peak_f32, peak_int8)
     timed("model", phase_model, torch, w2l)
     timed("musetalk_model", phase_musetalk_model, torch, muse, mt, attention, wf)

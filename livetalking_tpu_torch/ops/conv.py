@@ -31,17 +31,18 @@ leaves to plain XLA ops (1x1 shortcuts, stride-2 downsamplers, linears):
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import threading
-from typing import Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 from torch.nn import functional as F
 
 __all__ = ["conv3x3_q", "conv3x3_q_plain", "conv3x3_bf16", "conv3x3_bf16_plain",
            "conv3x3_gnq", "conv3x3_gnq_plain", "conv3x3_gnq_fits", "int8_matmul",
-           "CHANNEL_MULTIPLE", "BLOCK_M"]
+           "conv3x3_plan", "Conv3x3Plan", "CHANNEL_MULTIPLE", "BLOCK_M"]
 
 # the kernels stage the K dimension 64 bytes at a time, one 3x3 tap at a
 # time: int8 inputs need C % 64 == 0, bf16 inputs C % 32 == 0
@@ -51,6 +52,90 @@ CHANNEL_MULTIPLE = 64
 BLOCK_M = 128
 _OUT = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
+H100_SMS = 132  # streaming multiprocessors of an H100 SXM
+_STAGE_BYTES = 64  # K bytes of one channel chunk of kernel 4's pipeline
+_MIN_SPLIT_STAGES = 8  # a K split part walks at least this many tap chunks ...
+_MAX_SPLITS = 6  # ... and a tile has at most this many parts
+
+
+class Conv3x3Plan(NamedTuple):
+    """How kernel 4 divides one conv: output tiles of ``BLOCK_M`` pixels, a
+    ``box`` of (w, h, image) pixels, by ``bn`` channels. K is walked in
+    ``stages``: with ``halo``, one 64-byte channel chunk of all nine taps
+    (the tile's input halo is loaded once per chunk), else one tap's
+    64-byte chunk; the stages are cut into ``splits`` ranges. A (tile,
+    range) pair is a work unit. Persistent instances (BN = 256, or K by
+    tap) run at most ``sms`` blocks that walk the units; the others (BN =
+    128 over the halo, two blocks per SM) run one block per unit."""
+
+    box: Tuple[int, int, int]
+    halo: bool
+    m_tiles: int
+    bn: int
+    n_tiles: int
+    stages: int
+    splits: int
+    sms: int
+
+    @property
+    def tiles(self) -> int:
+        return self.m_tiles * self.n_tiles
+
+    @property
+    def units(self) -> int:
+        return self.tiles * self.splits
+
+    @property
+    def persistent(self) -> bool:
+        return self.bn == 256 or not self.halo
+
+    @property
+    def grid(self) -> int:
+        return min(self.units, self.sms) if self.persistent else self.units
+
+    def k_ranges(self) -> List[Tuple[int, int]]:
+        """The stages [begin, end) of each split part, as the kernel cuts them."""
+        return [(s * self.stages // self.splits, (s + 1) * self.stages // self.splits)
+                for s in range(self.splits)]
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=4096)
+def conv3x3_plan(B: int, H: int, W: int, C: int, O: int, in_bytes: int = 1,
+                 sms: int = H100_SMS) -> Conv3x3Plan:
+    """Kernel 4's work division for x (B, H, W, C) -> O channels of
+    ``in_bytes``-byte elements on a card of ``sms`` SMs.
+
+    From 8 px wide up, a tile is 8 x 16 pixels (8 x 8 x 2 images at 8 px)
+    and K runs by channel chunk over the tile's halo; narrower images take
+    boxes of powers of two over whole images (4 x 4 x 8) and K by tap.
+    Channel tiles are 256 wide where O % 256 == 0 and the tiles fill the
+    card, else 128. When the tiles T do not fill the card, K is split into
+    S = min(2 sms // T, 9 C bytes / 64 / 8, 6, stages) ranges of whole
+    stages (``Conv3x3Plan.k_ranges``), about two units per SM at most; a
+    split into two (T from 67 to 131) gained nothing on the card, so S < 3
+    means no split."""
+    halo = W >= 8
+    if halo:
+        bw, bh = 8, (16 if H > 8 else 8)
+    else:
+        bw = 1 << max(W - 1, 0).bit_length()
+        bh = min(1 << max(H - 1, 0).bit_length(), BLOCK_M // bw)
+    bb = BLOCK_M // (bw * bh)
+    m_tiles = _cdiv(W, bw) * _cdiv(H, bh) * _cdiv(B, bb)
+    bn = 256 if O % 256 == 0 and m_tiles * (O // 256) >= sms else 128
+    n_tiles = _cdiv(O, bn)
+    chunks = C * in_bytes // _STAGE_BYTES
+    stages = chunks if halo else 9 * chunks
+    tiles = m_tiles * n_tiles
+    splits = 1
+    if tiles < sms and 2 * sms // tiles >= 3:
+        splits = max(1, min(2 * sms // tiles, 9 * chunks // _MIN_SPLIT_STAGES, _MAX_SPLITS,
+                            stages))
+    return Conv3x3Plan((bw, bh, bb), halo, m_tiles, bn, n_tiles, stages, splits, sms)
 
 
 def _conv_exact(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
@@ -155,7 +240,7 @@ def _library():
     from livetalking_tpu_torch.ops import _build
 
     lib = _build.library("conv")
-    lib.conv3x3_launch.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+    lib.conv3x3_launch.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 15
                                    + [ctypes.c_void_p])
     lib.conv3x3_launch.restype = ctypes.c_int
     lib.conv3x3_gnq_launch.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
@@ -182,7 +267,7 @@ def _check(name: str, t: torch.Tensor, dev: torch.device, dtype: torch.dtype,
         raise ValueError(f"{name} is on {t.device}, not {dev}")
     if t.dtype != dtype:
         raise ValueError(f"{name} is {t.dtype}, want {dtype}")
-    if tuple(t.shape) != tuple(shape):
+    if t.shape != shape:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, want {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
@@ -191,14 +276,56 @@ def _check(name: str, t: torch.Tensor, dev: torch.device, dtype: torch.dtype,
 
 
 def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
+    """The handle of ``dev``'s current stream, read without building a
+    ``torch.cuda.Stream`` (which costs a few microseconds a call)."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
 
 
-def _launch_conv3x3(x, w, scale, bias, residual, out_dtype, counter) -> torch.Tensor:
+def _on(dev: torch.device):
+    """``torch.cuda.device(dev)``, skipped when ``dev`` is already current."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_split_buffers = {}  # (device index, stream) -> (tile counters, partials workspace)
+
+
+def _split_buffers_for(dev: torch.device, stream: int, tiles: int,
+                       ws_bytes: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 4's split-K buffers for launches on ``stream``: int32 tile
+    counters, zero between launches (the last part of a tile resets its
+    counter), and the partial sums' workspace. Launches on one stream run
+    in order, so one pair per stream serves every launch on it; a larger
+    launch replaces them (the caching allocator hands the old memory out
+    again only after the stream's earlier work)."""
+    key = (dev.index, stream)
+    counters, ws = _split_buffers.get(key, (None, None))
+    if counters is not None and counters.numel() >= tiles and ws.numel() >= ws_bytes:
+        return counters, ws
+    with _launch_lock:
+        counters, ws = _split_buffers.get(key, (None, None))
+        if counters is None or counters.numel() < tiles:
+            counters = torch.zeros(max(tiles, 1024), dtype=torch.int32, device=dev)
+        if ws is None or ws.numel() < ws_bytes:
+            ws = torch.empty(max(ws_bytes, 1 << 24), dtype=torch.uint8, device=dev)
+        _split_buffers[key] = (counters, ws)
+    return counters, ws
+
+
+def _launch_conv3x3(x, w, scale, bias, residual, out_dtype, counter,
+                    splits: Optional[int] = None) -> torch.Tensor:
+    """Kernel 4 on CUDA tensors, tiled by ``conv3x3_plan`` (``splits``
+    overrides its K split)."""
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"conv3x3 kernel: input on {dev}, not CUDA")
-    if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[1:3]) != (3, 3):
+    if x.dim() != 4 or w.dim() != 4 or w.shape[1:3] != (3, 3):
         raise ValueError(f"conv3x3 kernel: x {tuple(x.shape)}, w {tuple(w.shape)}; "
                          "want (B, H, W, C) and (O, 3, 3, C)")
     B, H, W, C = x.shape
@@ -218,16 +345,26 @@ def _launch_conv3x3(x, w, scale, bias, residual, out_dtype, counter) -> torch.Te
     _check("bias", bias, dev, torch.float32, (O,))
     if residual is not None:
         _check("residual", residual, dev, out_dtype, (B, H, W, O))
-    y = torch.empty((B, H, W, O), dtype=out_dtype, device=dev)
+    y = x.new_empty((B, H, W, O), dtype=out_dtype)
     if y.numel() == 0:
         return y
-    with torch.cuda.device(dev):
+    plan = conv3x3_plan(B, H, W, C, O, 1 if int8 else 2, _sm_count(dev.index))
+    if splits is not None:
+        plan = plan._replace(splits=splits)
+    stream = _stream(dev)
+    ws = counters = None
+    if plan.splits > 1:  # int32 (f32) partial tiles
+        counters, ws = _split_buffers_for(dev, stream, plan.tiles,
+                                          plan.units * BLOCK_M * plan.bn * 4)
+    with _on(dev):
         err = _library().conv3x3_launch(
             x.data_ptr(), w.data_ptr(), _ptr(scale), bias.data_ptr(), _ptr(residual),
-            y.data_ptr(), B, H, W, C, O, int(not int8), _OUT[out_dtype],
-            int(residual is not None), _stream(dev))
+            y.data_ptr(), _ptr(ws), _ptr(counters), B, H, W, C, O, int(not int8),
+            _OUT[out_dtype], int(residual is not None), *plan.box, int(plan.halo), plan.bn,
+            plan.splits, plan.grid, stream)
     if err != 0:
-        raise RuntimeError(f"conv3x3 kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"conv3x3 kernel launch failed: error {err} (a cudaError_t, or a "
+                           "negated CUresult of the tensor-map encode)")
     with _launch_lock:
         counter.launches += 1
     return y

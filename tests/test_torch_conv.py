@@ -211,3 +211,37 @@ def test_plain_conv_agrees_with_the_reference_conv_q():
                        torch.tensor(sx) * torch.from_numpy(np.array(pq["ws"])),
                        torch.from_numpy(np.array(pq["b"])), out_dtype=torch.float32)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("B", [16, 64, 128])
+def test_conv3x3_plan_splits_cover_k_once(B):
+    """Kernel 4's work division at every int8 3x3 site of a MuseTalk step
+    (chip_smoke.py's site lists: the U-Net's and the unfused decoder's 26
+    shapes), int8 and bf16 inputs: tiles of 128 pixels cover the output, K
+    splits into ranges of whole stages that cover it exactly once, K is
+    split only where the tiles do not fill the card's 132 SMs, and the
+    U-Net's 4x4 and 8x8 sites are split into enough parts to fill it."""
+    import chip_smoke
+    from livetalking_tpu_torch.models import sd_unet
+
+    sites = set(chip_smoke.unet_conv_sites(sd_unet, sd_unet.MUSETALK))
+    sites |= set(chip_smoke.vae_conv_sites(tv)[0])
+    assert len(sites) == 26
+    for H, C, O in sorted(sites):
+        for in_bytes in (1, 2):
+            plan = tc.conv3x3_plan(B, H, H, C, O, in_bytes)
+            bw, bh, bb = plan.box
+            assert bw * bh * bb == tc.BLOCK_M
+            assert plan.m_tiles == -(-B * H * H // tc.BLOCK_M)  # ceil(M / BM): no ragged tile
+            assert plan.n_tiles == -(-O // plan.bn) and plan.bn in (128, 256)
+            stage_bytes = 9 * 64 if plan.halo else 64  # a chunk of all taps, or of one
+            assert plan.stages * stage_bytes == 9 * C * in_bytes
+            ranges = plan.k_ranges()
+            assert len(ranges) == plan.splits and 1 <= plan.splits <= 6
+            assert ranges[0][0] == 0 and ranges[-1][1] == plan.stages
+            assert all(b < e for b, e in ranges)
+            assert all(r[1] == n[0] for r, n in zip(ranges, ranges[1:]))
+            if plan.tiles >= 132:
+                assert plan.splits == 1, (H, C, O, plan)
+            if B == 16 and H <= 8:  # the U-Net's 4x4 and 8x8 sites fill the card by parts
+                assert plan.splits >= 3 and plan.units >= 120, (H, C, O, plan)

@@ -211,6 +211,82 @@ def test_conv3x3_q_kernel_matches_plain(cuda, B, Hh, Ww, C, O, out_dtype, residu
     assert torch.equal(got, want), f"{_ulps(got, want)} bf16 ulps apart"
 
 
+def _q_inputs(dev, B, Hh, Ww, C, O, residual=None):
+    gen = torch.Generator(device=dev).manual_seed(B * 7 + Hh + C + O)
+    xq = torch.randint(-127, 128, (B, Hh, Ww, C), device=dev, generator=gen, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (O, 3, 3, C), device=dev, generator=gen, dtype=torch.int8)
+    scale = torch.rand(O, device=dev, generator=gen) * 1.5e-4 + 5e-5
+    bias = torch.randn(O, device=dev, generator=gen)
+    res = (torch.randn((B, Hh, Ww, O), device=dev, generator=gen).to(residual)
+           if residual is not None else None)
+    return xq, wq, scale, bias, res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("B,Hh,Ww,C,O", [(16, 4, 4, 2560, 1280), (16, 8, 8, 1280, 1280),
+                                         (3, 5, 7, 128, 96), (3, 10, 12, 128, 96),
+                                         (16, 8, 8, 320, 4)])
+def test_conv3x3_q_kernel_split_k_matches_plain(cuda, B, Hh, Ww, C, O, residual, out_dtype):
+    """Shapes whose tiles do not fill the card, so K is split across blocks
+    and the last part of each tile sums the partials: the U-Net's 4x4 (K by
+    tap) and 8x8 (K by chunk over the halo) sites, ragged pixel counts and
+    channel tiles by tap (B=3, 5x7, O=96) and over the halo (B=3, 10x12),
+    and O=4 (conv_out's width). Bit-equal, with and without the residual
+    epilogue."""
+    assert conv.conv3x3_plan(B, Hh, Ww, C, O).splits > 1
+    xq, wq, scale, bias, res = _q_inputs(cuda, B, Hh, Ww, C, O, out_dtype if residual else None)
+    before = conv.conv3x3_q.launches
+    got = conv.conv3x3_q(xq, wq, scale, bias, residual=res, out_dtype=out_dtype)
+    want = conv.conv3x3_q_plain(xq, wq, scale, bias, residual=res, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert conv.conv3x3_q.launches == before + 1
+    assert torch.equal(got, want), f"{_ulps(got, want)} bf16 ulps apart"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Ww,splits", [(4, 1), (4, 2), (4, 3), (4, 4), (4, 27), (16, 2),
+                                       (16, 3)])
+def test_conv3x3_q_kernel_forced_splits_match_plain(cuda, Ww, splits):
+    """C=192 is 3 chunks a tap. At W=4 K runs by tap, 27 stages: 2 and 4
+    parts end inside a tap, 3 on tap boundaries, 27 one stage each; at W=16
+    it runs by chunk over the halo, 3 stages. Every split gives the same
+    bits, and a second launch on the stream finds the tile counters reset."""
+    B, Hh, C, O = 2, 16, 192, 64
+    plan = conv.conv3x3_plan(B, Hh, Ww, C, O)._replace(splits=splits)
+    assert plan.halo == (Ww >= 8) and plan.k_ranges()[-1][1] == plan.stages
+    if not plan.halo and splits in (2, 4):
+        assert any(e % 3 for _, e in plan.k_ranges()[:-1]), "a K range should end inside a tap"
+    xq, wq, scale, bias, _ = _q_inputs(cuda, B, Hh, Ww, C, O)
+    want = conv.conv3x3_q_plain(xq, wq, scale, bias)
+    for _ in range(2):
+        got = conv._launch_conv3x3(xq, wq, scale, bias, None, torch.bfloat16, conv.conv3x3_q,
+                                   splits=splits)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"{_ulps(got, want)} bf16 ulps apart"
+
+
+@pytest.mark.cuda
+def test_conv3x3_bf16_kernel_split_k_matches_plain(cuda):
+    """The bf16 twin at a 4x4 site, where K is split: its partials are
+    summed in a fixed order, at the twin's bars (rtol = atol = 2e-2 on
+    signed inputs, 1 bf16 ulp on positive ones); the same bits twice."""
+    B, Hh, C, O = 16, 4, 1280, 1280
+    assert conv.conv3x3_plan(B, Hh, Hh, C, O, in_bytes=2).splits > 1
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = (torch.randn((B, Hh, Hh, C), device=cuda, generator=gen) * 0.3).to(torch.bfloat16)
+    w = (torch.randn((O, 3, 3, C), device=cuda, generator=gen) * 0.02).to(torch.bfloat16)
+    bias = torch.randn(O, device=cuda, generator=gen)
+    got = conv.conv3x3_bf16(x, w, bias)
+    want = conv.conv3x3_bf16_plain(x, w, bias)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+    assert torch.equal(conv.conv3x3_bf16(x, w, bias), got)
+    xp, wp, bp = x.abs(), w.abs(), bias.abs()
+    assert _ulps(conv.conv3x3_bf16(xp, wp, bp), conv.conv3x3_bf16_plain(xp, wp, bp)) <= 1
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,Hh,C,O", [(16, 32, 512, 512), (2, 16, 96, 64)])
 def test_conv3x3_bf16_kernel_matches_plain(cuda, B, Hh, C, O):
