@@ -11,14 +11,23 @@ Whisper-tiny) in bf16 and in W8A8 int8 at batch 16.
   1. device     — ``nvidia-smi`` name and power limit; compute capability 9.0.
   2. build      — every kernel under ``livetalking_tpu_torch/csrc``, one nvcc
                   per source, all at once; beside it ``nvcc -Xptxas -v`` on
-                  ``conv.cu`` prints each kernel's registers, shared memory
-                  and spills.
-  3. blend      — the rect paste-back kernel against its plain version on
-                  480x640 frames, a 240x256 bucket, B in {16, 128}, feather in
-                  {0, 9}: at most 1 LSB apart, byte-identical outside the bbox.
-  4. blend_mask — the masked paste-back kernel against its plain version on
-                  the synthetic MuseTalk avatar's geometry (blurred ellipse
-                  masks in a 288x384 bucket), B in {16, 128}: the same bars.
+                  ``conv.cu`` and ``blend.cu`` prints each kernel's
+                  registers, shared memory and spills.
+  3. blend      — the rect paste-back kernel, fused (frames by index in, new
+                  frames out, as ``make_resize_paste_fn`` runs it) and in
+                  place, against its plain version on 480x640 frames at B in
+                  {16, 32, 128} and on 1080x1920 frames at B=32 from 8-frame
+                  cycles, and at B=128 (480x640) and B=32 (1080x1920) from
+                  400-frame stores with sessions' consecutive indices; a
+                  240x256 bucket, feather in {0, 9}: at most 1 LSB apart,
+                  byte-identical outside the bbox. Times of both forms by
+                  ``cuda_ms`` and ``device_ms``, the full-frame gather the
+                  fused form absorbs (context), both bounds, the step's host
+                  time at B=32.
+  4. blend_mask — the same for the masked kernel on the synthetic MuseTalk
+                  avatar's geometry (blurred ellipse masks in a 288x384
+                  bucket), outside the face bbox. Then one paste step call of
+                  each kind at B=32 is one CUDA kernel (torch.profiler).
   5. attention  — the attention kernel against its plain version at every
                   shape a MuseTalk step gives it, B=16, bf16 (atol 2e-2, and
                   per element 2 bf16 ulps + 4e-3) and f32 (atol 2e-5); the
@@ -78,6 +87,7 @@ from __future__ import annotations
 import asyncio
 import collections
 import contextlib
+import functools
 import json
 import os
 import queue
@@ -177,7 +187,7 @@ def make_avatar(plugin, avatar_id: str, n: int, seed: int, device: str):
     return plugin.avatar_from_arrays(avatar_id, frames, faces, [BOX] * n, device=device)
 
 
-def start_ptxas_report(_build, source: str = "conv"):
+def start_ptxas_report(_build, source: str):
     """Compile ``csrc/<source>.cu`` to a cubin with ``-Xptxas -v`` beside the
     build (same flags); ``log_ptxas_report`` prints each kernel's registers,
     shared memory and spills."""
@@ -216,125 +226,220 @@ def log_ptxas_report(proc) -> None:
         log("ptxas", kernel=fn, **kv)
 
 
-def phase_blend(torch, blend, peak_bw: float, peak_f32: float) -> dict:
-    rng = np.random.default_rng(1)
-    N = 8
-    frames = torch.from_numpy(rng.integers(0, 256, (N, H, W, 3), dtype=np.uint8)).cuda()
-    boxes_np = []
-    for _ in range(N):
-        h, w = int(rng.integers(200, 241)), int(rng.integers(200, 241))
-        y1, x1 = int(rng.integers(0, H - h + 1)), int(rng.integers(0, W - w + 1))
-        boxes_np.append((y1, y1 + h, x1, x1 + w))
-    Ho, Wo = blend.bucket_shape(boxes_np)
-    if (Ho, Wo) != (240, 256):
-        raise AssertionError(f"bucket {(Ho, Wo)} != (240, 256)")
-    boxes = torch.tensor(boxes_np, dtype=torch.int32, device="cuda")
+# (frame, B, cycle frames in the store): 8-frame cycles, each index repeated
+# about B/8 times; then stores of real cycle length (the kernels line reads
+# the 480x640 one)
+PASTE_SHAPES = [((H, W), 16, 8), ((H, W), 32, 8), ((H, W), 128, 8), ((1080, 1920), 32, 8),
+                ((H, W), 128, 400), ((1080, 1920), 32, 400)]
+HD_OFFSET = (300, 640)  # the 480x640 face geometry moved into a 1080x1920 frame
+SESSION_FRAMES = 16  # frames per session in a super-batch (Wav2Lip's batch)
 
+
+def paste_idxs(rng, B: int, N: int) -> np.ndarray:
+    """Cycle indices of a super-batch: with 8 frames, drawn at random (each
+    repeated about B/8 times); with a longer cycle, B/16 sessions stepping
+    through it from random starts, 16 consecutive frames each, as the
+    scheduler gathers them (almost all distinct)."""
+    if N <= 8:
+        return rng.integers(0, N, (B,)).astype(np.int32)
+    starts = rng.integers(0, N, (B // SESSION_FRAMES, 1))
+    return ((starts + np.arange(SESSION_FRAMES)) % N).reshape(-1).astype(np.int32)
+
+
+def paste_frames(torch, rng, N: int, Hf: int, Wf: int):
+    """N random (Hf, Wf, 3) uint8 cycle frames on the card: drawn by numpy
+    for 8-frame cycles, on the card (seeded from ``rng``) for long ones."""
+    if N <= 8:
+        return torch.from_numpy(rng.integers(0, 256, (N, Hf, Wf, 3), dtype=np.uint8)).cuda()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(int(rng.integers(0, 2**31)))
+    return torch.randint(0, 256, (N, Hf, Wf, 3), dtype=torch.uint8, device="cuda", generator=gen)
+
+
+def check_one_kernel_per_paste(torch, call) -> None:
+    """One paste step call is one CUDA kernel (torch.profiler window)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if len(names) != 1 or "paste" not in names[0]:
+        raise AssertionError(f"one paste call ran the CUDA kernels {names}, want one paste kernel")
+
+
+def time_paste(torch, phase: str, shape, B: int, paste, inplace, gather, plain, bytes_fused,
+               bytes_inplace, ops: float, peak_bw: float, peak_f32: float,
+               clock_hz: float, N: int) -> dict:
+    """Times of one paste shape: the fused step (``paste``) and the in-place
+    kernel (``inplace``), each by ``cuda_ms`` and ``device_ms``; the full-frame
+    gather that the fused form absorbs, alone (context: the port never runs
+    it); the plain version; the bounds; at B=32 the step's host time."""
+    r = {"paste_ms": cuda_ms(paste), "paste_device_ms": device_ms(torch, paste, clock_hz),
+         "inplace_ms": cuda_ms(inplace), "inplace_device_ms": device_ms(torch, inplace, clock_hz),
+         "gather_ms": cuda_ms(gather), "plain_ms": cuda_ms(plain, warmup=2, iters=10)}
+    r["old_route_ms"] = r["gather_ms"] + r["inplace_ms"]
+    r["paste_bound_ms"], r["paste_bound_by"] = bound(bytes_fused / peak_bw * 1e3,
+                                                     ops / peak_f32 * 1e3)
+    r["inplace_bound_ms"], r["inplace_bound_by"] = bound(bytes_inplace / peak_bw * 1e3,
+                                                         ops / peak_f32 * 1e3)
+    r["wrapper_host_us"] = host_us_per_call(torch, paste, n=200) if B == 32 else None
+    log(phase, frame=f"{shape[0]}x{shape[1]}", B=B, store_frames=N,
+        **{k: (f"{v:.4f}" if isinstance(v, float) else v) for k, v in r.items()},
+        paste_share_of_bound=f"{r['paste_bound_ms'] / r['paste_device_ms']:.3f}",
+        inplace_share_of_bound=f"{r['inplace_bound_ms'] / r['inplace_device_ms']:.3f}",
+        paste_MB=f"{bytes_fused / 1e6:.1f}", inplace_MB=f"{bytes_inplace / 1e6:.1f}",
+        library_ms=NO_LIBRARY)
+    return r
+
+
+def phase_blend(torch, blend, peak_bw: float, peak_f32: float, clock_hz: float) -> dict:
+    """The rect paste kernel, both forms, against its plain version at each
+    of ``PASTE_SHAPES`` (240x256 bucket, feather 0 and 9 checked, 0 timed):
+    at most 1 LSB apart, byte-identical outside the bbox; then timed. Also
+    returns the paste step at B=32, 480x640 (``step``)."""
+    rng = np.random.default_rng(1)
     max_err = 0
     rows = {}
-    for B in (16, 128):
+    for (Hf, Wf), B, N in PASTE_SHAPES:
+        oy, ox = HD_OFFSET if Hf != H else (0, 0)
+        frames = paste_frames(torch, rng, N, Hf, Wf)
+        boxes_np = []
+        for _ in range(N):
+            h, w = int(rng.integers(200, 241)), int(rng.integers(200, 241))
+            y1, x1 = oy + int(rng.integers(0, H - h + 1)), ox + int(rng.integers(0, W - w + 1))
+            boxes_np.append((y1, y1 + h, x1, x1 + w))
+        Ho, Wo = blend.bucket_shape(boxes_np)
+        if (Ho, Wo) != (240, 256):
+            raise AssertionError(f"bucket {(Ho, Wo)} != (240, 256)")
+        boxes = torch.tensor(boxes_np, dtype=torch.int32, device="cuda")
         pred = torch.from_numpy(rng.integers(0, 256, (B, S, S, 3), dtype=np.uint8)).cuda()
-        idxs = torch.from_numpy(rng.integers(0, N, (B,))).cuda()
-        for feather in (0, 9):
-            fn = blend.make_resize_paste_fn(S, Ho, Wo, H, W, feather=feather)
-            got = fn(pred, frames, idxs, boxes)
-            want = blend.resize_paste_plain(pred, frames, idxs, boxes, S=S, Ho=Ho,
-                                            Wo=Wo, H=H, W=W, feather=feather)
-            torch.cuda.synchronize()
-            err = int((got.int() - want.int()).abs().max())
-            picked = frames.index_select(0, idxs)
-            outside = torch.ones((B, H, W), dtype=torch.bool, device="cuda")
-            for b, i in enumerate(idxs.tolist()):
-                y1, y2, x1, x2 = boxes_np[i]
-                outside[b, y1:y2, x1:x2] = False
-            if err > TOL_LSB or not torch.equal(got[outside], picked[outside]):
-                raise AssertionError(f"blend B={B} feather={feather}: max err {err} "
-                                     f"(tolerance {TOL_LSB} LSB) or pixels outside the bbox changed")
-            max_err = max(max_err, err)
-
-        # time the kernel's own function (in place on gathered frames) and
-        # its plain version on the same inputs; feather 0 is the served one
+        idxs = torch.from_numpy(paste_idxs(rng, B, N)).cuda()
+        picked = frames.index_select(0, idxs)
         box_b = boxes.index_select(0, idxs)
-        buf_k = frames.index_select(0, idxs)
-        buf_p = buf_k.clone()
-        ms = cuda_ms(lambda: blend.blend_rect_(pred, buf_k, box_b, Ho=Ho, Wo=Wo))
-        plain_ms = cuda_ms(lambda: blend._blend_rect_plain(pred, buf_p, box_b, Ho=Ho, Wo=Wo))
-        # least work the function needs for these inputs: read each pred crop
-        # once and each bbox pixel of the frame once, write it once; about
-        # 59 fp32 operations per bbox pixel (20 for positions/weights/alpha,
-        # 13 per channel for the 4-tap resize and the blend)
-        hw = [(min(y2 - y1, Ho)) * (min(x2 - x1, Wo))
-              for (y1, y2, x1, x2) in (boxes_np[i] for i in idxs.tolist())]
-        nbytes = B * (3 * S * S + 16) + 2 * 3 * sum(hw)
-        b_ms, b_by = bound(nbytes / peak_bw * 1e3, 59 * sum(hw) / peak_f32 * 1e3)
-        rows[B] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                   "bytes": nbytes}
-        log("blend", B=B, bucket=f"{Ho}x{Wo}", kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-            bound_ms=f"{b_ms:.4f}", bound_by=b_by, MB=f"{nbytes / 1e6:.1f}",
-            library_ms=NO_LIBRARY, max_abs_err=max_err)
-    return {"max_abs_err": max_err, "rows": rows}
+        outside = torch.ones((B, Hf, Wf), dtype=torch.bool, device="cuda")
+        for b, i in enumerate(idxs.tolist()):
+            y1, y2, x1, x2 = boxes_np[i]
+            outside[b, y1:y2, x1:x2] = False
+        for feather in (0, 9):
+            fn = blend.make_resize_paste_fn(S, Ho, Wo, Hf, Wf, feather=feather)
+            want = blend.resize_paste_plain(pred, frames, idxs, boxes, S=S, Ho=Ho, Wo=Wo, H=Hf,
+                                            W=Wf, feather=feather)
+            for form, got in (("fused", fn(pred, frames, idxs, boxes)),
+                              ("in place", blend.blend_rect_(pred, picked.clone(), box_b, Ho=Ho,
+                                                             Wo=Wo, feather=feather))):
+                torch.cuda.synchronize()
+                err = int((got.int() - want.int()).abs().max())
+                if err > TOL_LSB or not torch.equal(got[outside], picked[outside]):
+                    raise AssertionError(f"blend {form} {Hf}x{Wf} B={B} feather={feather}: max "
+                                         f"err {err} (tolerance {TOL_LSB} LSB) or pixels "
+                                         "outside the bbox changed")
+                max_err = max(max_err, err)
+        fn = blend.make_resize_paste_fn(S, Ho, Wo, Hf, Wf)
+        paste = lambda: fn(pred, frames, idxs, boxes)  # noqa: E731
+        if (Hf, Wf, B) == (H, W, 32):
+            step = functools.partial(fn, pred, frames, idxs, boxes)
+        buf = picked.clone()
+        # least work for these inputs, fused: each distinct frame read once,
+        # each output frame written once, each pred crop read once, the box
+        # of each distinct index once, the indices; in place (as before):
+        # each pred crop once, the boxes, each bbox pixel read and written
+        # once. About 59 fp32 operations per bbox pixel (20 for positions,
+        # weights and alpha, 13 per channel for the 4-tap resize and blend)
+        uniq = len(set(idxs.tolist()))
+        hw = sum(min(y2 - y1, Ho) * min(x2 - x1, Wo)
+                 for (y1, y2, x1, x2) in (boxes_np[i] for i in idxs.tolist()))
+        frame_bytes = Hf * Wf * 3
+        r = time_paste(
+            torch, "blend", (Hf, Wf), B, paste,
+            lambda: blend.blend_rect_(pred, buf, box_b, Ho=Ho, Wo=Wo),
+            lambda: frames.index_select(0, idxs),
+            lambda: blend.resize_paste_plain(pred, frames, idxs, boxes, S=S, Ho=Ho, Wo=Wo,
+                                             H=Hf, W=Wf),
+            (uniq + B) * frame_bytes + B * (3 * S * S + 4) + uniq * 16,
+            B * (3 * S * S + 16) + 2 * 3 * hw, 59 * hw, peak_bw, peak_f32, clock_hz, N)
+        rows[(Hf, Wf, B, N)] = r
+        del frames, picked, buf, outside
+        torch.cuda.empty_cache()
+    log("blend", max_abs_err=max_err)
+    return {"max_abs_err": max_err, "rows": rows, "step": step}
 
 
-def phase_blend_mask(torch, blend, synthetic, peak_bw: float, peak_f32: float) -> dict:
-    """The masked kernel on the synthetic MuseTalk avatar's geometry, with
-    the face box jittered per cycle index so items differ."""
+def phase_blend_mask(torch, blend, synthetic, peak_bw: float, peak_f32: float,
+                     clock_hz: float) -> dict:
+    """The masked paste kernel, both forms, on the synthetic MuseTalk
+    avatar's geometry (blurred ellipse masks, 288x384 bucket), the face box
+    jittered per cycle index so items differ, at each of ``PASTE_SHAPES``:
+    the same bars outside the face bbox; then timed. Also returns the paste
+    step at B=32, 480x640 (``step``)."""
     rng = np.random.default_rng(3)
-    N = 8
     a = synthetic.musetalk_avatar_arrays(n_frames=1, frame_hw=(H, W), seed=3)
     (x1, y1, x2, y2), (xs, ys, xe, ye) = a["coords"][0], a["mask_coords"][0]
-    faces, crops, masks = [], [], []
-    for _ in range(N):
-        dx, dy = int(rng.integers(-20, 21)), int(rng.integers(-20, 21))
-        faces.append((x1 + dx, y1 + dy, x2 + dx, y2 + dy))
-        crops.append((xs + dx, ys + dy, xe + dx, ye + dy))
-        masks.append(a["masks"][0])
-    Ho, Wo = blend.bucket_shape([(b, d, a_, c) for (a_, b, c, d) in crops])
-    origins, scalars, mask_np = blend.prepare_masked_paste_data(faces, crops, masks, Ho, Wo, H, W)
-    frames = torch.from_numpy(rng.integers(0, 256, (N, H, W, 3), dtype=np.uint8)).cuda()
-    org, sc, mk = (torch.from_numpy(v).cuda() for v in (origins, scalars, mask_np))
-    fn = blend.make_masked_paste_fn(S, Ho, Wo, H, W)
-
     max_err = 0
     rows = {}
-    for B in (16, 128):
+    for (Hf, Wf), B, N in PASTE_SHAPES:
+        oy, ox = HD_OFFSET if Hf != H else (0, 0)
+        faces, crops, masks = [], [], []
+        for _ in range(N):
+            dx, dy = ox + int(rng.integers(-20, 21)), oy + int(rng.integers(-20, 21))
+            faces.append((x1 + dx, y1 + dy, x2 + dx, y2 + dy))
+            crops.append((xs + dx, ys + dy, xe + dx, ye + dy))
+            masks.append(a["masks"][0])
+        Ho, Wo = blend.bucket_shape([(b, d, a_, c) for (a_, b, c, d) in crops])
+        origins, scalars, mask_np = blend.prepare_masked_paste_data(faces, crops, masks, Ho, Wo,
+                                                                    Hf, Wf)
+        frames = paste_frames(torch, rng, N, Hf, Wf)
+        org, sc, mk = (torch.from_numpy(v).cuda() for v in (origins, scalars, mask_np))
+        fn = blend.make_masked_paste_fn(S, Ho, Wo, Hf, Wf)
         pred = torch.from_numpy(rng.integers(0, 256, (B, S, S, 3), dtype=np.uint8)).cuda()
-        idxs = torch.from_numpy(rng.integers(0, N, (B,)).astype(np.int32)).cuda()
-        got = fn(pred, frames, idxs, org, sc, mk)
-        want = blend.masked_paste_plain(pred, frames, idxs, org, sc, mk, S=S, Ho=Ho, Wo=Wo,
-                                        H=H, W=W)
-        torch.cuda.synchronize()
-        err = int((got.int() - want.int()).abs().max())
+        idxs = torch.from_numpy(paste_idxs(rng, B, N)).cuda()
         picked = frames.index_select(0, idxs)
-        outside = torch.ones((B, H, W), dtype=torch.bool, device="cuda")
+        want = blend.masked_paste_plain(pred, frames, idxs, org, sc, mk, S=S, Ho=Ho, Wo=Wo,
+                                        H=Hf, W=Wf)
+        outside = torch.ones((B, Hf, Wf), dtype=torch.bool, device="cuda")
         for b, i in enumerate(idxs.tolist()):
             fx1, fy1, fx2, fy2 = faces[i]
             outside[b, fy1:fy2, fx1:fx2] = False
-        if err > TOL_LSB or not torch.equal(got[outside], picked[outside]):
-            raise AssertionError(f"blend_mask B={B}: max err {err} (tolerance {TOL_LSB} LSB) "
-                                 "or pixels outside the face bbox changed")
-        max_err = max(max_err, err)
-
-        buf_k = frames.index_select(0, idxs)
-        buf_p = buf_k.clone()
-        ms = cuda_ms(lambda: blend.blend_masked_(pred, buf_k, idxs, org, sc, mk, Ho=Ho, Wo=Wo))
-        plain_ms = cuda_ms(lambda: blend._blend_masked_plain(pred, buf_p, idxs, org, sc, mk,
-                                                             Ho=Ho, Wo=Wo))
-        # least work for these inputs: each pred crop and index once; the
-        # mask inside the face bbox, the origin and the geometry once per
-        # distinct cycle index (items share them); read + write of every
-        # pixel whose mask is non-zero; about 60 fp32 operations per
-        # written pixel
+        for form, got in (("fused", fn(pred, frames, idxs, org, sc, mk)),
+                          ("in place", blend.blend_masked_(pred, picked.clone(), idxs, org, sc,
+                                                           mk, Ho=Ho, Wo=Wo))):
+            torch.cuda.synchronize()
+            err = int((got.int() - want.int()).abs().max())
+            if err > TOL_LSB or not torch.equal(got[outside], picked[outside]):
+                raise AssertionError(f"blend_mask {form} {Hf}x{Wf} B={B}: max err {err} "
+                                     f"(tolerance {TOL_LSB} LSB) or pixels outside the face "
+                                     "bbox changed")
+            max_err = max(max_err, err)
+        paste = lambda: fn(pred, frames, idxs, org, sc, mk)  # noqa: E731
+        if (Hf, Wf, B) == (H, W, 32):
+            step = functools.partial(fn, pred, frames, idxs, org, sc, mk)
+        buf = picked.clone()
+        # least work for these inputs, fused: each distinct frame read once,
+        # each output frame written once, each pred crop and index once; the
+        # origin, the geometry and the mask inside the face bbox once per
+        # distinct index; in place (as before): the same without the frames,
+        # plus a read and a write of every pixel whose mask is non-zero.
+        # About 60 fp32 operations per pixel with a non-zero mask
         uniq = sorted(set(idxs.tolist()))
         h_w = sum(int(scalars[i, 0]) * int(scalars[i, 1]) for i in uniq)
-        nnz = [int((mask_np[i] > 0).sum()) for i in idxs.tolist()]
-        nbytes = B * (3 * S * S + 4) + len(uniq) * (8 + 16) + h_w + 2 * 3 * sum(nnz)
-        b_ms, b_by = bound(nbytes / peak_bw * 1e3, 60 * sum(nnz) / peak_f32 * 1e3)
-        rows[B] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                   "bytes": nbytes}
-        log("blend_mask", B=B, bucket=f"{Ho}x{Wo}", kernel_ms=f"{ms:.4f}",
-            plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b_ms:.4f}", bound_by=b_by,
-            MB=f"{nbytes / 1e6:.1f}", library_ms=NO_LIBRARY, max_abs_err=max_err)
-    return {"max_abs_err": max_err, "rows": rows}
+        nnz = sum(int((mask_np[i] > 0).sum()) for i in idxs.tolist())
+        planes = B * (3 * S * S + 4) + len(uniq) * (8 + 16) + h_w
+        r = time_paste(
+            torch, "blend_mask", (Hf, Wf), B, paste,
+            lambda: blend.blend_masked_(pred, buf, idxs, org, sc, mk, Ho=Ho, Wo=Wo),
+            lambda: frames.index_select(0, idxs),
+            lambda: blend.masked_paste_plain(pred, frames, idxs, org, sc, mk, S=S, Ho=Ho, Wo=Wo,
+                                             H=Hf, W=Wf),
+            planes + (len(uniq) + B) * Hf * Wf * 3, planes + 2 * 3 * nnz, 60 * nnz, peak_bw,
+            peak_f32, clock_hz, N)
+        rows[(Hf, Wf, B, N)] = r
+        del frames, picked, buf, outside
+        torch.cuda.empty_cache()
+    log("blend_mask", bucket=f"{Ho}x{Wo}", max_abs_err=max_err)
+    return {"max_abs_err": max_err, "rows": rows, "step": step}
 
 
 def check_attention(torch, attn, shape, gen, err: dict) -> tuple:
@@ -1319,13 +1424,18 @@ def main(argv) -> int:
         return out
 
     t0 = time.time()
-    ptxas = start_ptxas_report(_build)
+    ptxas = [start_ptxas_report(_build, source) for source in ("conv", "blend")]
     libs = _build.build_all()
     log("build", seconds=f"{time.time() - t0:.2f}", libs=sorted(libs))
-    log_ptxas_report(ptxas)
+    for proc in ptxas:
+        log_ptxas_report(proc)
 
-    b = timed("blend", phase_blend, torch, blend, peak_bw, peak_f32)
-    bm = timed("blend_mask", phase_blend_mask, torch, blend, synthetic, peak_bw, peak_f32)
+    b = timed("blend", phase_blend, torch, blend, peak_bw, peak_f32, clock_mhz * 1e6)
+    bm = timed("blend_mask", phase_blend_mask, torch, blend, synthetic, peak_bw, peak_f32,
+               clock_mhz * 1e6)
+    for r in (b, bm):
+        check_one_kernel_per_paste(torch, r["step"])
+    log("paste_kernels_per_call", rect=1, mask=1)
     at = timed("attention", phase_attention, torch, attention, peak_bw, peak_bf16, exp_rate)
     k4 = timed("conv_int8", phase_conv_int8, torch, conv, sd_unet, sd_vae, peak_bw, peak_int8,
                clock_mhz * 1e6)
@@ -1344,17 +1454,26 @@ def main(argv) -> int:
               paced)
 
     def row(name, source, replaces, launches, err, r, library_ms):
+        extra = {k: r[k] for k in ("device_ms", "gather_ms", "library_note") if k in r}
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": err, "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                "library_ms": library_ms}
+                "library_ms": library_ms, **extra}
+
+    def paste_row(r):
+        """The fused paste at B=128, 480x640, from a store of real cycle
+        length: ``ms`` by ``cuda_ms``, with its ``device_ms`` and, as context,
+        the gather it absorbs."""
+        return {"ms": r["paste_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["paste_bound_ms"],
+                "bound_by": r["paste_bound_by"], "device_ms": r["paste_device_ms"],
+                "gather_ms": r["gather_ms"], "library_note": NO_LIBRARY}
 
     src = "livetalking_tpu_torch/csrc/"
     kernels = [
         row("blend", src + "blend.cu", "livetalking_tpu/ops/pallas_blend.py:116",
-            e["launches"], b["max_abs_err"], b["rows"][128], None),
+            e["launches"], b["max_abs_err"], paste_row(b["rows"][(H, W, 128, 400)]), None),
         row("blend_mask", src + "blend.cu", "livetalking_tpu/ops/pallas_blend.py:141",
-            me["blend_mask"], bm["max_abs_err"], bm["rows"][128], None),
+            me["blend_mask"], bm["max_abs_err"], paste_row(bm["rows"][(H, W, 128, 400)]), None),
         row("attention", src + "attention.cu", "livetalking_tpu/ops/pallas_attention.py:79",
             me["attention"], at["max_abs_err"], at["step"], at["step"]["library_ms"]),
         row("conv3x3_q", src + "conv.cu", "livetalking_tpu/ops/pallas_conv.py:130",

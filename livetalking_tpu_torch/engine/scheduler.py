@@ -36,6 +36,10 @@ import torch
 from livetalking_tpu_torch.utils.logger import logger
 
 MAX_IN_FLIGHT = 2
+# with no idle window, after a batch resolves, partial batches wait for its
+# sessions to submit again for at most this share of the batch's
+# launch-to-resolve time
+ALIGN_GRACE = 0.25
 
 
 class SchedulerConfigError(ValueError):
@@ -212,7 +216,9 @@ class BatchScheduler:
         # the oldest held request for more sessions to land on the same
         # super-batch. Hold-while-busy (below) aligns sessions only when
         # the device is saturated; a real-time-paced deployment idles
-        # between rounds and needs this window. 0 = dispatch immediately
+        # between rounds and needs this window. 0 = no idle window: a
+        # partial batch waits only for the sessions of the batch that just
+        # resolved (``_run``), at most ALIGN_GRACE of a round
         self.coalesce_window_s = float(coalesce_window_s)
         self._clock = clock
         # adaptive alignment target: rolling max of recently launched
@@ -432,22 +438,38 @@ class BatchScheduler:
         step's duration is the natural cross-session alignment window.
         Dispatch-on-arrival locks free-running sessions into small
         staggered super-batches that never re-merge. A full bucket still
-        dispatches immediately, two deep."""
+        dispatches immediately, two deep.
+
+        With no idle window (``coalesce_window_s == 0``) the round does not
+        end when the last batch resolves: its sessions have yet to submit
+        again. So the hold lasts until as many requests arrived as that
+        batch resolved, or ``ALIGN_GRACE`` of the batch's launch-to-resolve
+        time passed (a session that stopped costs at most that). With an
+        idle window, that window does this work instead."""
         logger.info("batch scheduler start (buckets=%s, B=%d)", self.buckets, self.batch_size)
         maxb = self.buckets[-1]
         held: List[_Request] = []
-        state = {"in_flight": 0}
+        # returning: requests of resolved batches not yet matched by an
+        # arrival, the sessions expected back within the grace (no window)
+        grace = self.coalesce_window_s == 0
+        state = {"in_flight": 0, "returning": 0, "resolved_at": 0.0, "round_s": 0.0}
         lock = threading.Lock()
-        fetchq: "Queue[Optional[Tuple[_InFlight, List[_Request]]]]" = Queue()
+        fetchq: "Queue[Optional[Tuple[_InFlight, List[_Request], float]]]" = Queue()
 
         def fetcher() -> None:
             while True:
                 item = fetchq.get()
                 if item is None:
                     return
-                self._try_resolve(*item)
+                batch, reqs, t_launch = item
+                self._try_resolve(batch, reqs)
+                now = self._clock()
                 with lock:
                     state["in_flight"] -= 1
+                    if grace:
+                        state["returning"] += len(reqs)
+                    state["resolved_at"] = now
+                    state["round_s"] = now - t_launch
 
         fthread = threading.Thread(target=fetcher, daemon=True,
                                    name="batch-scheduler-fetch")
@@ -455,23 +477,29 @@ class BatchScheduler:
 
         def launch(batch: List[_Request]) -> None:
             self._launch_sizes.append(len(batch))
+            t_launch = self._clock()
             out = self._try_dispatch(batch)
             if out is not None:
                 with lock:
                     state["in_flight"] += 1
-                fetchq.put(out)
+                fetchq.put(out + (t_launch,))
 
         while not self._quit.is_set():
-            held.extend(self._drain(
-                timeout=0.002 if (held or state["in_flight"]) else 0.5))
+            new = self._drain(timeout=0.002 if (held or state["in_flight"]) else 0.5)
+            held.extend(new)
             if not held:
                 continue
             with lock:
                 busy = state["in_flight"]
+                state["returning"] = max(0, state["returning"] - len(new))
+                if (state["returning"] and self._clock() - state["resolved_at"]
+                        >= ALIGN_GRACE * state["round_s"]):
+                    state["returning"] = 0  # those sessions stopped or slowed
+                returning = state["returning"]
             if len(held) >= maxb and busy < MAX_IN_FLIGHT:
                 batch, held = held[:maxb], held[maxb:]
                 launch(batch)
-            elif busy == 0:
+            elif busy == 0 and not returning:
                 # idle device, partial bucket: hold up to the alignment
                 # window for the other active sessions — but dispatch as
                 # soon as the held set matches what recent rounds prove

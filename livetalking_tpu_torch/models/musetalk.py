@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from livetalking_tpu_torch.models import sd_unet, sd_vae
+from livetalking_tpu_torch.utils.device import resolve_device
 
 
 def positional_encoding_table(seq_len: int, d_model: int = 384) -> np.ndarray:
@@ -72,11 +73,13 @@ def make_infer_fn(unet_cfg: sd_unet.UNetConfig, batch_size: int, ctx_len: int = 
 
 @torch.inference_mode()
 def encode_avatar_latents(vae_params, faces_bgr: np.ndarray, batch: int = 8,
-                          device="cpu", dtype: torch.dtype = torch.float32) -> np.ndarray:
+                          device="cuda", dtype: torch.dtype = torch.float32) -> np.ndarray:
     """Per-frame (32, 32, 8) U-Net input latents of an avatar:
-    cat(masked-lower-half latents, reference latents).
+    cat(masked-lower-half latents, reference latents), encoded on
+    ``device`` (the card unless the caller asks for the CPU).
 
     faces_bgr: (N, 256, 256, 3) uint8. Returns (N, 32, 32, 8) float32."""
+    device = resolve_device(device)
     rgb = faces_bgr[..., ::-1].astype(np.float32) / 255.0
     x = (rgb - 0.5) / 0.5  # [-1, 1]
     half_mask = np.ones((256, 256, 1), np.float32)

@@ -2,25 +2,33 @@
 
 Ports livetalking_tpu/ops/pallas_blend.py. A batch of predicted (S, S)
 mouth crops goes back into full frames on the device, so only finished
-frames leave it:
-
-    gather full frames by cycle index          (torch.index_select)
-    -> bilinear-resize each crop into its bbox  \
-    -> feathered alpha blend over the frame      > csrc/blend.cu, in place
-    -> write the blended pixels back            /
+frames leave it. One kernel (csrc/blend.cu) does the whole step: it reads
+each item's cycle frame by index, resizes the crop into its bbox, blends
+it and writes the finished frame once; no gathered copy is made first.
 
 Crops are padded to a static per-avatar bucket ``(Ho, Wo)`` = (next
 multiple of 8, next multiple of 128) >= the largest bbox of the cycle, as
-in the reference. ``blend_rect_`` is the kernel's wrapper: on CPU tensors
-it runs the plain version ``_blend_rect_plain``, on CUDA tensors it
-launches the kernel, and on anything else it raises.
+in the reference.
 
-The masked variant (MuseTalk) takes alpha from a per-cycle-index uint8
-face-parse mask inside a larger crop box instead of the feathered rect:
-``prepare_masked_paste_data`` builds its per-index planes on the host,
-``blend_masked_`` is its kernel's wrapper (plain version
-``_blend_masked_plain``), ``make_masked_paste_fn`` the batched step and
-``MaskedDevicePasteBack`` the per-avatar path.
+Entries, each a wrapper of the kernel: on CPU tensors it runs its plain
+version, on CUDA tensors it launches the kernel, on anything else it
+raises.
+
+- ``paste_rect`` (Wav2Lip; plain ``resize_paste_plain``) and
+  ``paste_masked`` (MuseTalk, alpha from a per-cycle-index uint8
+  face-parse mask inside a larger crop box; plain ``masked_paste_plain``):
+  frames by index in, new full frames out.
+- ``make_resize_paste_fn`` and ``make_masked_paste_fn``: the same steps
+  with the static geometry checked once, as the avatars' step factories
+  call them.
+- ``blend_rect_`` and ``blend_masked_``: the kernel's in-place form on
+  already-gathered frames (plain ``_blend_rect_plain``,
+  ``_blend_masked_plain``).
+
+Both forms of a kernel count their launches in ``blend_rect_.launches``
+and ``blend_masked_.launches``. ``prepare_masked_paste_data`` builds the
+masked path's per-index planes on the host; ``DevicePasteBack`` and
+``MaskedDevicePasteBack`` are the per-avatar paths without a scheduler.
 """
 
 from __future__ import annotations
@@ -33,10 +41,13 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from livetalking_tpu_torch.ops.conv import _on, _stream
 from livetalking_tpu_torch.utils.device import resolve_device
 
 __all__ = [
     "bucket_shape",
+    "paste_rect",
+    "paste_masked",
     "blend_rect_",
     "blend_masked_",
     "make_resize_paste_fn",
@@ -99,9 +110,117 @@ def _feather_alpha(n_out: int, n: torch.Tensor, off: torch.Tensor, feather: int)
     return torch.where(inside, a, torch.zeros_like(a))
 
 
+_launch_lock = threading.Lock()
+_U8 = (torch.uint8,)
+_I32 = (torch.int32,)
+_IDX = (torch.int32, torch.int64)
+
+
+@functools.cache
+def _kernel_fn():
+    from livetalking_tpu_torch.ops import _build
+
+    fn = _build.library("blend").paste_launch
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] + [ctypes.c_longlong] * 2
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 4
+                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_geometry(S: int, Ho: int, Wo: int, H: int, W: int, feather: int = 0) -> None:
+    if not (S > 0 and 0 < Ho <= H and 0 < Wo <= W) or feather < 0:
+        raise ValueError(f"paste: crop bucket ({Ho},{Wo}) must lie inside the frame "
+                         f"({H},{W}), with S={S} > 0 and feather={feather} >= 0")
+
+
+def _check_pred(pred_u8: torch.Tensor, S: int) -> None:
+    if pred_u8.shape[1:] != (S, S, 3):
+        raise ValueError(f"paste: pred {tuple(pred_u8.shape)}, want (B,{S},{S},3)")
+
+
+def _check_tensors(kernel: str, dev: torch.device, named) -> None:
+    """Raise unless each ``(name, tensor, dtypes, shape)`` lies on ``dev``
+    (a CUDA device), has one of ``dtypes``, the shape and contiguous
+    memory; ``pred`` needs only pixels of 3 contiguous bytes and
+    non-negative strides, which the kernel reads as they are."""
+    if dev.type != "cuda":
+        raise ValueError(f"{kernel}: tensors on {dev}, not CUDA")
+    index = dev.index
+    for name, t, dtypes, shape in named:
+        if not t.is_cuda or t.get_device() != index:
+            raise ValueError(f"{kernel}: {name} is on {t.device}, not {dev}")
+        if t.dtype not in dtypes:
+            raise ValueError(f"{kernel}: {name} is {t.dtype}, want one of {dtypes}")
+        if t.shape != shape:
+            raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, want {shape}")
+        if name == "pred":
+            sb, sy, sx, sc = t.stride()
+            if sx != 3 or sc != 1 or sb < 0 or sy < 0:
+                raise ValueError(f"{kernel}: pred strides {t.stride()}, want (>=0, >=0, 3, 1)")
+        elif not t.is_contiguous():
+            raise ValueError(f"{kernel}: {name} must be contiguous")
+
+
+def _launch(masked: bool, fused: bool, pred, src, out, idxs, planes, S: int, Ho: int,
+            Wo: int, feather: int) -> None:
+    """Launch the kernel on ``out``'s device and current stream; raise if
+    the launch failed. ``planes``: (boxes,) or (origins, scalars, masks)."""
+    B, H, W = out.shape[:3]
+    dev = out.device
+    ptrs = [t.data_ptr() for t in planes]
+    ptrs = [0] + ptrs if masked else ptrs + [0, 0, 0]  # boxes, origins, scalars, masks
+    sb, sy = pred.stride()[:2]
+    with _on(dev):
+        err = _kernel_fn()(masked, fused, pred.data_ptr(), sb, sy,
+                           0 if src is None else src.data_ptr(), out.data_ptr(),
+                           0 if idxs is None else idxs.data_ptr(),
+                           idxs is not None and idxs.dtype == torch.int64, *ptrs,
+                           B, S, H, W, Ho, Wo, feather, _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"paste kernel launch failed: cudaError {err}")
+    counter = blend_masked_ if masked else blend_rect_
+    with _launch_lock:
+        counter.launches += 1
+
+
+def _paste_rect(pred, frames, idxs, boxes, S: int, Ho: int, Wo: int, H: int, W: int,
+                feather: int) -> torch.Tensor:
+    """``paste_rect`` after the static geometry was checked."""
+    dev = frames.device
+    if dev.type == pred.device.type == idxs.device.type == boxes.device.type == "cpu":
+        return resize_paste_plain(pred, frames, idxs, boxes, S=S, Ho=Ho, Wo=Wo, H=H, W=W,
+                                  feather=feather)
+    B, N = idxs.shape[0], frames.shape[0]
+    _check_tensors("paste_rect", dev, (("pred", pred, _U8, (B, S, S, 3)),
+                                       ("frames", frames, _U8, (N, H, W, 3)),
+                                       ("idxs", idxs, _IDX, (B,)),
+                                       ("boxes", boxes, _I32, (N, 4))))
+    out = torch.empty((B, H, W, 3), dtype=torch.uint8, device=dev)
+    if B:
+        _launch(False, True, pred, frames, out, idxs, (boxes,), S, Ho, Wo, feather)
+    return out
+
+
+def paste_rect(pred: torch.Tensor, frames: torch.Tensor, idxs: torch.Tensor,
+               boxes: torch.Tensor, *, Ho: int, Wo: int, feather: int = 0) -> torch.Tensor:
+    """Paste each crop ``pred[b]`` into a copy of ``frames[idxs[b]]``.
+
+    ``pred`` (B, S, S, 3) uint8, ``frames`` (N, H, W, 3) uint8, ``idxs``
+    (B,) int32 or int64 in [0, N) (the kernel does not check them),
+    ``boxes`` (N, 4) int32 (y1, y2, x1, x2). Returns new (B, H, W, 3) uint8
+    frames. CPU tensors run ``resize_paste_plain``; CUDA tensors launch the
+    kernel in its fused form (counted in ``blend_rect_.launches``);
+    anything else raises."""
+    S, (H, W) = pred.shape[1], frames.shape[1:3]
+    _check_geometry(S, Ho, Wo, H, W, feather)
+    return _paste_rect(pred, frames, idxs, boxes, S, Ho, Wo, H, W, feather)
+
+
 def _blend_rect_plain(pred: torch.Tensor, out: torch.Tensor, boxes: torch.Tensor,
                       *, Ho: int, Wo: int, feather: int = 0) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: same function, same arithmetic.
+    """Plain PyTorch version of the kernel's in-place form: same function,
+    same arithmetic.
 
     ``pred`` (B, S, S, 3) uint8, ``out`` (B, H, W, 3) uint8 gathered frames
     updated in place, ``boxes`` (B, 4) (y1, y2, x1, x2). Returns ``out``."""
@@ -124,98 +243,51 @@ def _blend_rect_plain(pred: torch.Tensor, out: torch.Tensor, boxes: torch.Tensor
     return out
 
 
-_launch_lock = threading.Lock()
-
-
-@functools.cache
-def _kernel_fn():
-    from livetalking_tpu_torch.ops import _build
-
-    fn = _build.library("blend").blend_rect_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _check_kernel_args(pred, out, boxes, Ho: int, Wo: int, feather: int) -> None:
-    for name, t in (("pred", pred), ("out", out), ("boxes", boxes)):
-        if t.device.type != "cuda":
-            raise ValueError(f"blend kernel: {name} is on {t.device}, not CUDA")
-        if t.device != out.device:
-            raise ValueError(f"blend kernel: {name} on {t.device}, out on {out.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"blend kernel: {name} must be contiguous")
-    if pred.dtype != torch.uint8 or out.dtype != torch.uint8 or boxes.dtype != torch.int32:
-        raise ValueError(f"blend kernel: dtypes pred {pred.dtype}, out {out.dtype}, "
-                         f"boxes {boxes.dtype}; want uint8, uint8, int32")
-    B = out.shape[0]
-    if (out.dim() != 4 or out.shape[3] != 3 or pred.dim() != 4
-            or pred.shape[0] != B or pred.shape[1] != pred.shape[2] or pred.shape[3] != 3
-            or tuple(boxes.shape) != (B, 4)):
-        raise ValueError(f"blend kernel: shapes pred {tuple(pred.shape)}, out "
-                         f"{tuple(out.shape)}, boxes {tuple(boxes.shape)}")
-    if not (0 < Ho <= out.shape[1] and 0 < Wo <= out.shape[2]) or feather < 0:
-        raise ValueError(f"blend kernel: bucket ({Ho},{Wo}) / feather {feather} "
-                         f"invalid for frames {tuple(out.shape[1:3])}")
-
-
 def blend_rect_(pred: torch.Tensor, out: torch.Tensor, boxes: torch.Tensor,
                 *, Ho: int, Wo: int, feather: int = 0) -> torch.Tensor:
     """Resize ``pred`` into each item's bbox and blend it into ``out``, in place.
 
-    The wrapper of ``csrc/blend.cu``. CPU tensors run ``_blend_rect_plain``;
-    CUDA tensors launch the kernel on the current stream (and count the
-    launch in ``blend_rect_.launches``); anything else raises."""
+    ``out`` (B, H, W, 3) uint8 holds already-gathered frames, ``boxes``
+    (B, 4) int32 their bboxes; nothing outside a bbox is written. CPU
+    tensors run ``_blend_rect_plain``; CUDA tensors launch the kernel's
+    in-place form on the current stream (counted in
+    ``blend_rect_.launches``); anything else raises."""
     if pred.device.type == out.device.type == boxes.device.type == "cpu":
         return _blend_rect_plain(pred, out, boxes, Ho=Ho, Wo=Wo, feather=feather)
-    _check_kernel_args(pred, out, boxes, Ho, Wo, feather)
     B, H, W = out.shape[:3]
-    launch = _kernel_fn()
-    with torch.cuda.device(out.device):
-        err = launch(pred.data_ptr(), out.data_ptr(), boxes.data_ptr(),
-                     B, pred.shape[1], H, W, Ho, Wo, feather,
-                     torch.cuda.current_stream(out.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"blend kernel launch failed: cudaError {err}")
-    with _launch_lock:
-        blend_rect_.launches += 1
+    S = pred.shape[1]
+    _check_geometry(S, Ho, Wo, H, W, feather)
+    _check_tensors("blend_rect_", out.device, (("pred", pred, _U8, (B, S, S, 3)),
+                                               ("out", out, _U8, (B, H, W, 3)),
+                                               ("boxes", boxes, _I32, (B, 4))))
+    if B:
+        _launch(False, False, pred, None, out, None, (boxes,), S, Ho, Wo, feather)
     return out
 
 
 blend_rect_.launches = 0
 
 
-def _check_bucket(Ho: int, Wo: int, H: int, W: int) -> None:
-    if Ho > H or Wo > W:
-        raise ValueError(f"crop bucket ({Ho},{Wo}) exceeds frame ({H},{W})")
-
-
-def _check_pred(pred_u8: torch.Tensor, S: int) -> None:
-    if pred_u8.shape[1:] != (S, S, 3):
-        raise ValueError(f"paste: pred {tuple(pred_u8.shape)}, want (B,{S},{S},3)")
-
-
 def make_resize_paste_fn(S: int, Ho: int, Wo: int, H: int, W: int, feather: int = 0):
     """Build the batched paste-back step.
 
     Returns ``fn(pred_u8 (B,S,S,3), frames_u8 (N,H,W,3), idxs (B,),
-    boxes (N,4)) -> (B,H,W,3) uint8`` full frames, all on one device."""
-    _check_bucket(Ho, Wo, H, W)
+    boxes (N,4)) -> (B,H,W,3) uint8`` full frames, all on one device: the
+    geometry is checked here once, each call checks its tensors and runs
+    ``paste_rect``'s kernel (or, on CPU tensors, its plain version)."""
+    _check_geometry(S, Ho, Wo, H, W, feather)
 
     def paste(pred_u8, frames_u8, idxs, boxes):
-        _check_pred(pred_u8, S)
-        picked = frames_u8.index_select(0, idxs)
-        box = boxes.index_select(0, idxs).to(torch.int32).contiguous()
-        return blend_rect_(pred_u8.contiguous(), picked, box, Ho=Ho, Wo=Wo,
-                           feather=feather)
+        return _paste_rect(pred_u8, frames_u8, idxs, boxes, S, Ho, Wo, H, W, feather)
 
     return paste
 
 
 def resize_paste_plain(pred_u8, frames_u8, idxs, boxes, *, S: int, Ho: int,
                        Wo: int, H: int, W: int, feather: int = 0) -> torch.Tensor:
-    """Plain PyTorch paste-back on any device (the test oracle)."""
-    _check_bucket(Ho, Wo, H, W)
+    """Plain PyTorch version of ``paste_rect`` on any device (the test
+    oracle): gather the frames and boxes, then ``_blend_rect_plain``."""
+    _check_geometry(S, Ho, Wo, H, W, feather)
     _check_pred(pred_u8, S)
     picked = frames_u8.index_select(0, idxs)
     return _blend_rect_plain(pred_u8, picked, boxes.index_select(0, idxs),
@@ -253,8 +325,8 @@ class DevicePasteBack:
 def _blend_masked_plain(pred: torch.Tensor, out: torch.Tensor, idxs: torch.Tensor,
                         origins: torch.Tensor, scalars: torch.Tensor, masks: torch.Tensor,
                         *, Ho: int, Wo: int) -> torch.Tensor:
-    """Plain PyTorch version of the masked kernel: same function, same
-    arithmetic.
+    """Plain PyTorch version of the masked kernel's in-place form: same
+    function, same arithmetic.
 
     ``pred`` (B, S, S, 3) uint8, ``out`` (B, H, W, 3) uint8 gathered frames
     updated in place, ``idxs`` (B,) cycle indices into ``origins`` (N, 2)
@@ -282,73 +354,80 @@ def _blend_masked_plain(pred: torch.Tensor, out: torch.Tensor, idxs: torch.Tenso
     return out
 
 
-@functools.cache
-def _masked_kernel_fn():
-    from livetalking_tpu_torch.ops import _build
-
-    fn = _build.library("blend").blend_masked_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _check_masked_args(pred, out, idxs, origins, scalars, masks, Ho: int, Wo: int) -> None:
-    named = (("pred", pred), ("out", out), ("idxs", idxs), ("origins", origins),
-             ("scalars", scalars), ("masks", masks))
-    for name, t in named:
-        if t.device.type != "cuda":
-            raise ValueError(f"masked blend kernel: {name} is on {t.device}, not CUDA")
-        if t.device != out.device:
-            raise ValueError(f"masked blend kernel: {name} on {t.device}, out on {out.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"masked blend kernel: {name} must be contiguous")
-    want = (torch.uint8, torch.uint8, torch.int32, torch.int32, torch.int32, torch.uint8)
-    if tuple(t.dtype for _, t in named) != want:
-        raise ValueError("masked blend kernel: dtypes "
-                         + ", ".join(f"{n} {t.dtype}" for n, t in named)
-                         + "; want uint8, uint8, int32, int32, int32, uint8")
-    B, N = out.shape[0], origins.shape[0]
-    if (out.dim() != 4 or out.shape[3] != 3 or pred.dim() != 4 or pred.shape[0] != B
-            or pred.shape[1] != pred.shape[2] or pred.shape[3] != 3
-            or tuple(idxs.shape) != (B,) or tuple(origins.shape) != (N, 2)
-            or tuple(scalars.shape) != (N, 4) or tuple(masks.shape) != (N, Ho, Wo)):
-        raise ValueError(f"masked blend kernel: shapes pred {tuple(pred.shape)}, out "
-                         f"{tuple(out.shape)}, idxs {tuple(idxs.shape)}, origins "
-                         f"{tuple(origins.shape)}, scalars {tuple(scalars.shape)}, masks "
-                         f"{tuple(masks.shape)} for bucket ({Ho},{Wo})")
-    if not (0 < Ho <= out.shape[1] and 0 < Wo <= out.shape[2]):
-        raise ValueError(f"masked blend kernel: bucket ({Ho},{Wo}) invalid for frames "
-                         f"{tuple(out.shape[1:3])}")
-
-
 def blend_masked_(pred: torch.Tensor, out: torch.Tensor, idxs: torch.Tensor,
                   origins: torch.Tensor, scalars: torch.Tensor, masks: torch.Tensor,
                   *, Ho: int, Wo: int) -> torch.Tensor:
     """Resize ``pred`` into each item's bbox and blend it into ``out`` with
     the item's uint8 mask as alpha, in place.
 
-    The wrapper of the masked kernel in ``csrc/blend.cu``. CPU tensors run
-    ``_blend_masked_plain``; CUDA tensors launch the kernel on the current
-    stream (and count the launch in ``blend_masked_.launches``); anything
-    else raises. Indices must lie in ``[0, N)``: the kernel does not check
-    them."""
+    ``out`` (B, H, W, 3) uint8 holds already-gathered frames; ``idxs`` (B,)
+    index the planes ``origins`` (N, 2), ``scalars`` (N, 4) (int32) and
+    ``masks`` (N, Ho, Wo) uint8, and must lie in ``[0, N)``: the kernel
+    does not check them. Each mask must be zero outside its box (the
+    ``scalars`` geometry), as ``prepare_masked_paste_data`` builds it: the
+    kernel blends the box only. Where the mask is 0 the frame keeps its
+    bytes.
+    CPU tensors run ``_blend_masked_plain``; CUDA tensors launch the
+    kernel's in-place form on the current stream (counted in
+    ``blend_masked_.launches``); anything else raises."""
     args = (pred, out, idxs, origins, scalars, masks)
     if all(t.device.type == "cpu" for t in args):
         return _blend_masked_plain(*args, Ho=Ho, Wo=Wo)
-    _check_masked_args(*args, Ho=Ho, Wo=Wo)
     B, H, W = out.shape[:3]
-    launch = _masked_kernel_fn()
-    with torch.cuda.device(out.device):
-        err = launch(*(t.data_ptr() for t in args), B, pred.shape[1], H, W, Ho, Wo,
-                     torch.cuda.current_stream(out.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"masked blend kernel launch failed: cudaError {err}")
-    with _launch_lock:
-        blend_masked_.launches += 1
+    S = pred.shape[1]
+    _check_geometry(S, Ho, Wo, H, W)
+    _check_tensors("blend_masked_", out.device,
+                   (("pred", pred, _U8, (B, S, S, 3)), ("out", out, _U8, (B, H, W, 3)))
+                   + _plane_specs(idxs, origins, scalars, masks, B, Ho, Wo))
+    if B:
+        _launch(True, False, pred, None, out, idxs, (origins, scalars, masks), S, Ho, Wo, 0)
     return out
 
 
 blend_masked_.launches = 0
+
+
+def _plane_specs(idxs, origins, scalars, masks, B: int, Ho: int, Wo: int) -> tuple:
+    N = origins.shape[0]
+    return (("idxs", idxs, _IDX, (B,)), ("origins", origins, _I32, (N, 2)),
+            ("scalars", scalars, _I32, (N, 4)), ("masks", masks, _U8, (N, Ho, Wo)))
+
+
+def _paste_masked(pred, frames, idxs, origins, scalars, masks, S: int, Ho: int, Wo: int,
+                  H: int, W: int) -> torch.Tensor:
+    """``paste_masked`` after the static geometry was checked."""
+    args = (pred, frames, idxs, origins, scalars, masks)
+    if all(t.device.type == "cpu" for t in args):
+        return masked_paste_plain(*args, S=S, Ho=Ho, Wo=Wo, H=H, W=W)
+    dev = frames.device
+    B = idxs.shape[0]
+    _check_tensors("paste_masked", dev,
+                   (("pred", pred, _U8, (B, S, S, 3)),
+                    ("frames", frames, _U8, (frames.shape[0], H, W, 3)))
+                   + _plane_specs(idxs, origins, scalars, masks, B, Ho, Wo))
+    out = torch.empty((B, H, W, 3), dtype=torch.uint8, device=dev)
+    if B:
+        _launch(True, True, pred, frames, out, idxs, (origins, scalars, masks), S, Ho, Wo, 0)
+    return out
+
+
+def paste_masked(pred: torch.Tensor, frames: torch.Tensor, idxs: torch.Tensor,
+                 origins: torch.Tensor, scalars: torch.Tensor, masks: torch.Tensor,
+                 *, Ho: int, Wo: int) -> torch.Tensor:
+    """Paste each crop ``pred[b]`` into a copy of ``frames[idxs[b]]`` with
+    the index's uint8 mask as alpha.
+
+    ``pred`` (B, S, S, 3) uint8, ``frames`` (N, H, W, 3) uint8, ``idxs``
+    (B,) int32 or int64 in [0, N) (the kernel does not check them), and the
+    planes of ``prepare_masked_paste_data``: ``origins`` (N, 2) and
+    ``scalars`` (N, 4) int32, ``masks`` (N, Ho, Wo) uint8, zero outside
+    each box (the kernel blends the box only). Returns new
+    (B, H, W, 3) uint8 frames. CPU tensors run ``masked_paste_plain``; CUDA
+    tensors launch the kernel in its fused form (counted in
+    ``blend_masked_.launches``); anything else raises."""
+    S, (H, W) = pred.shape[1], frames.shape[1:3]
+    _check_geometry(S, Ho, Wo, H, W)
+    return _paste_masked(pred, frames, idxs, origins, scalars, masks, S, Ho, Wo, H, W)
 
 
 def make_masked_paste_fn(S: int, Ho: int, Wo: int, H: int, W: int):
@@ -359,22 +438,23 @@ def make_masked_paste_fn(S: int, Ho: int, Wo: int, H: int, W: int):
     uint8`` full frames, all on one device. ``origins`` are the clamped
     paste origins (oy, ox), ``scalars`` the bbox geometry (h, w, dy, dx)
     relative to them, and ``masks_u8`` must be zero outside the bbox
-    (``prepare_masked_paste_data`` builds all three)."""
-    _check_bucket(Ho, Wo, H, W)
+    (``prepare_masked_paste_data`` builds all three). The geometry is
+    checked here once; each call checks its tensors and runs
+    ``paste_masked``'s kernel (or, on CPU tensors, its plain version)."""
+    _check_geometry(S, Ho, Wo, H, W)
 
     def paste(pred_u8, frames_u8, idxs, origins, scalars, masks_u8):
-        _check_pred(pred_u8, S)
-        picked = frames_u8.index_select(0, idxs)
-        return blend_masked_(pred_u8.contiguous(), picked, idxs.to(torch.int32).contiguous(),
-                             origins, scalars, masks_u8, Ho=Ho, Wo=Wo)
+        return _paste_masked(pred_u8, frames_u8, idxs, origins, scalars, masks_u8, S, Ho, Wo,
+                             H, W)
 
     return paste
 
 
 def masked_paste_plain(pred_u8, frames_u8, idxs, origins, scalars, masks_u8, *, S: int,
                        Ho: int, Wo: int, H: int, W: int) -> torch.Tensor:
-    """Plain PyTorch masked paste-back on any device (the test oracle)."""
-    _check_bucket(Ho, Wo, H, W)
+    """Plain PyTorch version of ``paste_masked`` on any device (the test
+    oracle): gather the frames, then ``_blend_masked_plain``."""
+    _check_geometry(S, Ho, Wo, H, W)
     _check_pred(pred_u8, S)
     picked = frames_u8.index_select(0, idxs)
     return _blend_masked_plain(pred_u8, picked, idxs, origins, scalars, masks_u8, Ho=Ho, Wo=Wo)

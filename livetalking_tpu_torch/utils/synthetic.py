@@ -21,6 +21,8 @@ import numpy as np
 import torch
 from torch.nn import functional as F
 
+from livetalking_tpu_torch.utils.device import resolve_device
+
 FACE = 256
 
 
@@ -83,13 +85,17 @@ def musetalk_avatar_arrays(n_frames: int = 6, frame_hw: Tuple[int, int] = (480, 
 
 def make_synthetic_musetalk_avatar(avatar_dir: str, vae_params, n_frames: int = 6,
                                    frame_hw: Tuple[int, int] = (480, 640), seed: int = 0,
-                                   device="cpu") -> str:
+                                   device="cuda") -> str:
     """Write a musetalk-format avatar directory (full_imgs/, mask/,
     coords.pkl, mask_coords.pkl, latents.pt of (1, 8, 32, 32) tensors)
-    whose latents are encoded by ``vae_params`` on ``device``."""
+    whose latents are encoded by ``vae_params`` on ``device`` (the card
+    unless the caller asks for the CPU; a CUDA request without a card
+    raises before anything is written)."""
     import cv2
 
     from livetalking_tpu_torch.models.musetalk import encode_avatar_latents
+
+    device = resolve_device(device)
 
     a = musetalk_avatar_arrays(n_frames, frame_hw, seed)
     for sub in ("full_imgs", "mask"):

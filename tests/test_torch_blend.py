@@ -9,7 +9,11 @@ point), pixels outside the bbox byte-identical, ``bucket_shape`` equal.
 The masked path: its planes equal ``prepare_masked_paste_data``'s, and its
 plain version is within 1 LSB of ``make_masked_paste_fn`` run through the
 XLA twin and through the Pallas kernel in interpret mode, byte-identical
-outside the face bbox. The kernels themselves is checked against the plain version on the card by
+outside the face bbox. The entries ``paste_rect`` and ``paste_masked``
+(frames by index in, new frames out) run their plain versions on CPU
+tensors and agree with the JAX package's steps, repeated indices
+included; on any other device they launch the kernel or raise. The kernel
+itself is checked against the plain versions on the card by
 tests/test_torch_kernels.py (skipped without a CUDA device) and by
 chip_smoke.py.
 """
@@ -118,6 +122,31 @@ def test_device_paste_back_on_cpu_matches_plain():
     assert np.array_equal(got, want)
 
 
+@pytest.mark.parametrize("feather", [0, 9])
+def test_paste_rect_on_cpu_matches_jax(feather):
+    """``paste_rect`` (fused entry) against the JAX step through its XLA
+    twin, with repeated and unordered indices (int32 and int64)."""
+    frames, boxes, pred, _ = _inputs(seed=13, n_frames=4, B=6)
+    idxs = np.asarray([3, 1, 3, 0, 1, 3], np.int32)
+    H, W = frames.shape[1:3]
+    Ho, Wo = pb.bucket_shape(boxes)
+    want = np.asarray(pb.make_resize_paste_fn(S, Ho, Wo, H, W, feather=feather,
+                                              use_pallas=False)(pred, frames, idxs, boxes))
+    for ix in (idxs, idxs.astype(np.int64)):
+        before = tb.blend_rect_.launches
+        got = tb.paste_rect(torch.from_numpy(pred), torch.from_numpy(frames),
+                            torch.from_numpy(ix), torch.from_numpy(boxes), Ho=Ho, Wo=Wo,
+                            feather=feather).numpy()
+        assert tb.blend_rect_.launches == before  # CPU tensors: the plain version
+        assert got.shape == want.shape == (len(idxs), H, W, 3)
+        assert np.abs(got.astype(np.int32) - want.astype(np.int32)).max() <= 1
+    for b, i in enumerate(idxs):
+        y1, y2, x1, x2 = boxes[i]
+        outside = np.ones((H, W), bool)
+        outside[y1:y2, x1:x2] = False
+        assert np.array_equal(got[b][outside], frames[i][outside])
+
+
 def test_wrapper_never_runs_plain_on_a_non_cpu_tensor():
     before = tb.blend_rect_.launches
     meta = dict(device="meta")
@@ -127,6 +156,21 @@ def test_wrapper_never_runs_plain_on_a_non_cpu_tensor():
                        torch.empty((2, 4), dtype=torch.int32, **meta), Ho=240, Wo=256)
     assert tb.blend_rect_.launches == before
 
+
+def test_paste_rect_never_runs_plain_on_a_non_cpu_tensor():
+    m = dict(device="meta")
+    args = [torch.empty((2, S, S, 3), dtype=torch.uint8, **m),
+            torch.empty((3, 480, 640, 3), dtype=torch.uint8, **m),
+            torch.empty((2,), dtype=torch.int32, **m), torch.empty((3, 4), dtype=torch.int32, **m)]
+    before = tb.blend_rect_.launches
+    with pytest.raises(ValueError):
+        tb.paste_rect(*args, Ho=240, Wo=256)
+    with pytest.raises(ValueError):
+        tb.make_resize_paste_fn(S, 240, 256, 480, 640)(*args)
+    args[2] = torch.zeros((2,), dtype=torch.int32)  # mixed devices
+    with pytest.raises(ValueError):
+        tb.paste_rect(*args, Ho=240, Wo=256)
+    assert tb.blend_rect_.launches == before
 
 
 # -- masked path (MuseTalk) ---------------------------------------------------
@@ -196,6 +240,31 @@ def test_masked_plain_matches_jax(jax_kw):
         assert not np.array_equal(got[b][y1:y2, x1:x2], frames[i][y1:y2, x1:x2])
 
 
+def test_paste_masked_on_cpu_matches_jax():
+    """``paste_masked`` (fused entry) against the JAX step through its XLA
+    twin, with repeated and unordered indices (int32 and int64)."""
+    faces, crops, masks, frames, pred, _ = _masked_inputs(14, B=5)
+    idxs = np.asarray([2, 0, 2, 3, 0], np.int32)
+    H, W = frames.shape[1:3]
+    Ho, Wo = _bucket(crops)
+    planes = tb.prepare_masked_paste_data(faces, crops, masks, Ho, Wo, H, W)
+    want = np.asarray(pb.make_masked_paste_fn(S, Ho, Wo, H, W, use_pallas=False)(
+        pred, frames, idxs, *planes))
+    for ix in (idxs, idxs.astype(np.int64)):
+        before = tb.blend_masked_.launches
+        got = tb.paste_masked(torch.from_numpy(pred), torch.from_numpy(frames),
+                              torch.from_numpy(ix), *(torch.from_numpy(p) for p in planes),
+                              Ho=Ho, Wo=Wo).numpy()
+        assert tb.blend_masked_.launches == before  # CPU tensors: the plain version
+        assert got.shape == want.shape == (len(idxs), H, W, 3)
+        assert np.abs(got.astype(np.int32) - want.astype(np.int32)).max() <= 1
+    for b, i in enumerate(idxs):
+        x1, y1, x2, y2 = faces[i]
+        outside = np.ones((H, W), bool)
+        outside[y1:y2, x1:x2] = False
+        assert np.array_equal(got[b][outside], frames[i][outside])
+
+
 def test_masked_device_paste_back_on_cpu_matches_jax():
     faces, crops, masks, frames, pred, idxs = _masked_inputs(12, B=2)
     mine = tb.MaskedDevicePasteBack(frames, faces, crops, masks, S, device="cpu")
@@ -219,4 +288,22 @@ def test_masked_wrapper_never_runs_plain_on_a_non_cpu_tensor():
     args[0] = torch.zeros((2, S, S, 3), dtype=torch.uint8)  # mixed devices
     with pytest.raises(ValueError):
         tb.blend_masked_(*args, Ho=288, Wo=384)
+    assert tb.blend_masked_.launches == before
+
+
+def test_paste_masked_never_runs_plain_on_a_non_cpu_tensor():
+    m = dict(device="meta")
+    args = [torch.empty((2, S, S, 3), dtype=torch.uint8, **m),
+            torch.empty((4, 480, 640, 3), dtype=torch.uint8, **m),
+            torch.empty((2,), dtype=torch.int32, **m), torch.empty((4, 2), dtype=torch.int32, **m),
+            torch.empty((4, 4), dtype=torch.int32, **m),
+            torch.empty((4, 288, 384), dtype=torch.uint8, **m)]
+    before = tb.blend_masked_.launches
+    with pytest.raises(ValueError):
+        tb.paste_masked(*args, Ho=288, Wo=384)
+    with pytest.raises(ValueError):
+        tb.make_masked_paste_fn(S, 288, 384, 480, 640)(*args)
+    args[5] = torch.zeros((4, 288, 384), dtype=torch.uint8)  # mixed devices
+    with pytest.raises(ValueError):
+        tb.paste_masked(*args, Ho=288, Wo=384)
     assert tb.blend_masked_.launches == before

@@ -205,6 +205,52 @@ def test_idle_window_holds_a_partial_batch_until_target_or_timeout():
         sched.stop()
 
 
+def test_hold_policy_aligns_staggered_sessions():
+    """The port's counterpart of the JAX package's
+    tests/test_scheduler.py::test_hold_policy_aligns_staggered_sessions, at
+    its setup and bar: four free-running closed-loop sessions that start
+    3 ms apart, a 50 ms device step, buckets (1, 2, 4) and no idle window
+    must lock onto full super-batches (at least 80% of the batches after
+    the first two)."""
+    N, B = 4, 2
+    store = AvatarStore(item_shape=(1,), device="cpu")
+    offs = [store.add(f"h{i}", np.zeros((6, 1), np.uint8))[0] for i in range(N)]
+
+    def slow_factory(n):
+        def step(model, buffer, idxs, mel):
+            time.sleep(0.05)  # stand-in for a long device step
+            return buffer.index_select(0, idxs.long())
+        return step
+
+    sched = BatchScheduler(None, store, slow_factory, B, buckets=(1, 2, 4),
+                           coalesce_window_s=0.0)
+    sched.start()
+    stop = Event()
+
+    def session(i):
+        idxs = (offs[i] + np.arange(B)).astype(np.int32)
+        mel = np.zeros((B, 4, 4), np.float32)
+        time.sleep(0.003 * i)  # initial stagger
+        while not stop.is_set():
+            sched.infer(idxs, mel)
+
+    threads = [Thread(target=session, args=(i,), daemon=True) for i in range(N)]
+    try:
+        for t in threads:
+            t.start()
+        time.sleep(2.0)
+        stop.set()
+        for t in threads:
+            t.join(timeout=10)
+    finally:
+        stop.set()
+        sched.stop()
+    sizes = list(sched.batch_sizes)
+    assert len(sizes) >= 5, sizes
+    steady = sizes[2:]
+    assert sum(s == N for s in steady) / len(steady) >= 0.8, sizes
+
+
 def test_stop_fails_held_requests_and_refuses_new_ones():
     gate, started = Event(), Event()
     sched = BatchScheduler(None, _store(), _echo_factory(gate, started), batch_size=2,

@@ -1,5 +1,5 @@
 """The port's CUDA paths on the card: each kernel (rect and masked
-paste-back, attention, the int8 3x3 conv and its bf16 twin, the fused
+paste-back, fused and in place, attention, the int8 3x3 conv and its bf16 twin, the fused
 GroupNorm-SiLU-quantize conv) against its plain PyTorch version, the exact
 int8 GEMM, and the scheduler's pinned device->host ring.
 
@@ -103,6 +103,199 @@ def test_masked_blend_kernel_matches_plain(cuda, B):
         outside = torch.ones((H, W), dtype=torch.bool, device=cuda)
         outside[y1:y2, x1:x2] = False
         assert torch.equal(got[b][outside], picked[b][outside])
+
+
+# paste kernel cases: (frame H, W, cycle length N, placement of the boxes)
+PASTE_CASES = {
+    "480x640": (480, 640, 6, "inside"),
+    "479x641": (479, 641, 5, "inside"),  # H*W*3 % 16 != 0: rows off 16 bytes
+    "edges": (480, 640, 8, "edges"),     # boxes clamped at each frame edge
+    "frame_bucket": (240, 256, 3, "frame"),  # a bucket equal to the frame
+    "1080p": (1080, 1920, 6, "inside"),
+}
+PASTE_RUNS = ([("480x640", B) for B in (1, 3, 16, 128)]
+              + [("479x641", 3), ("479x641", 16), ("edges", 16), ("edges", 128),
+                 ("frame_bucket", 3), ("1080p", 32)])
+
+
+def _paste_boxes(rng, H, W, N, place, lo=150, hi=260):
+    """N (y1, y2, x1, x2) boxes: inside the frame, crossing each of its
+    edges in turn (and two corners), or spanning the whole frame."""
+    boxes = []
+    for n in range(N):
+        if place == "frame":
+            boxes.append((0, H, 0, W) if n == 0 else (-5 * n, H - 5 * n, 3 * n, W - 5 * n))
+            continue
+        h, w = int(rng.integers(lo, hi)), int(rng.integers(lo, hi))
+        y1, x1 = int(rng.integers(0, H - h + 1)), int(rng.integers(0, W - w + 1))
+        if place == "edges":
+            y1, x1 = [(-20, x1), (H - h + 20, x1), (y1, -20), (y1, W - w + 20), (-7, -9),
+                      (H - h + 5, W - w + 3), (0, 0), (H - h, W - w)][n % 8]
+        boxes.append((y1, y1 + h, x1, x1 + w))
+    return boxes
+
+
+def _outside_equal(got, picked, regions):
+    """Every pixel outside each item's region (y1, y2, x1, x2) equals the
+    gathered frame's, byte for byte."""
+    H, W = got.shape[1:3]
+    for b, (y1, y2, x1, x2) in enumerate(regions):
+        keep = torch.ones((H, W), dtype=torch.bool, device=got.device)
+        keep[max(y1, 0):max(y2, 0), max(x1, 0):max(x2, 0)] = False
+        if not torch.equal(got[b][keep], picked[b][keep]):
+            return False
+    return True
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feather", [0, 9])
+@pytest.mark.parametrize("case,B", PASTE_RUNS)
+def test_paste_rect_kernel_matches_plain(cuda, case, B, feather):
+    """Both forms of the rect kernel against the plain version: the fused
+    entry (``paste_rect`` and the step of ``make_resize_paste_fn``, int64
+    and int32 indices, a strided pred) and the in-place form on the
+    gathered frames; within 1 LSB, byte-identical outside each bbox."""
+    H, W, N, place = PASTE_CASES[case]
+    rng = np.random.default_rng(B * 10 + feather + H)
+    boxes_np = _paste_boxes(rng, H, W, N, place)
+    Ho, Wo = (H, W) if place == "frame" else blend.bucket_shape(boxes_np)
+    frames = torch.from_numpy(rng.integers(0, 256, (N, H, W, 3), dtype=np.uint8)).to(cuda)
+    boxes = torch.tensor(boxes_np, dtype=torch.int32, device=cuda)
+    wide = torch.from_numpy(rng.integers(0, 256, (B, S, S + 4, 3), dtype=np.uint8)).to(cuda)
+    pred = wide[:, :, 2:S + 2]  # rows 4 pixels apart: the kernel takes the strides
+    idxs = torch.from_numpy(rng.integers(0, N, (B,))).to(cuda)  # repeated, unordered
+    want = blend.resize_paste_plain(pred, frames, idxs, boxes, S=S, Ho=Ho, Wo=Wo, H=H, W=W,
+                                    feather=feather)
+    picked = frames.index_select(0, idxs)
+    regions = [boxes_np[i] for i in idxs.tolist()]
+    before = blend.blend_rect_.launches
+    outs = [blend.paste_rect(pred, frames, idxs, boxes, Ho=Ho, Wo=Wo, feather=feather),
+            blend.make_resize_paste_fn(S, Ho, Wo, H, W, feather=feather)(
+                pred.contiguous(), frames, idxs.int(), boxes)]
+    inplace = picked.clone()
+    outs.append(blend.blend_rect_(pred, inplace, boxes.index_select(0, idxs), Ho=Ho, Wo=Wo,
+                                  feather=feather))
+    torch.cuda.synchronize()
+    assert blend.blend_rect_.launches == before + 3
+    for got in outs:
+        assert got.shape == (B, H, W, 3) and got.dtype == torch.uint8
+        assert int((got.int() - want.int()).abs().max()) <= 1
+        assert _outside_equal(got, picked, regions)
+
+
+def _masked_planes(rng, H, W, N, place):
+    """Face boxes, crop boxes (face + 10% a side) and noisy masks, placed
+    as ``_paste_boxes`` places boxes; the planes against their bucket."""
+    faces, crops, masks = [], [], []
+    lo, hi = (150, 260) if place != "frame" else (H // 2, H - 2 * (H // 10))
+    for y1, y2, x1, x2 in _paste_boxes(rng, H, W, N, "inside" if place == "frame" else place,
+                                       lo, hi):
+        h, w = y2 - y1, x2 - x1
+        my, mx = h // 10, w // 10
+        ys, xs = min(max(y1 - my, 0), H - h - 2 * my), min(max(x1 - mx, 0), W - w - 2 * mx)
+        faces.append((xs + mx, ys + my, xs + mx + w, ys + my + h))
+        crops.append((xs, ys, xs + w + 2 * mx, ys + h + 2 * my))
+        m = rng.integers(0, 256, (h + 2 * my, w + 2 * mx), dtype=np.uint8)
+        m[m < 60] = 0
+        masks.append(m)
+    Ho, Wo = blend.bucket_shape([(ys, ye, xs, xe) for (xs, ys, xe, ye) in crops])
+    if place == "frame":
+        Ho, Wo = H, W
+    return faces, blend.prepare_masked_paste_data(faces, crops, masks, Ho, Wo, H, W), Ho, Wo
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,B", PASTE_RUNS)
+def test_paste_masked_kernel_matches_plain(cuda, case, B):
+    """Both forms of the masked kernel against the plain version, as
+    above; byte-identical outside each face bbox."""
+    H, W, N, place = PASTE_CASES[case]
+    rng = np.random.default_rng(B + H)
+    faces, planes_np, Ho, Wo = _masked_planes(rng, H, W, N, place)
+    planes = [torch.from_numpy(p).to(cuda) for p in planes_np]
+    frames = torch.from_numpy(rng.integers(0, 256, (N, H, W, 3), dtype=np.uint8)).to(cuda)
+    wide = torch.from_numpy(rng.integers(0, 256, (B, S + 1, S, 3), dtype=np.uint8)).to(cuda)
+    pred = wide[:, 1:]  # a view one row in: the kernel takes the item stride
+    idxs = torch.from_numpy(rng.integers(0, N, (B,)).astype(np.int32)).to(cuda)
+    want = blend.masked_paste_plain(pred, frames, idxs, *planes, S=S, Ho=Ho, Wo=Wo, H=H, W=W)
+    picked = frames.index_select(0, idxs)
+    regions = [(y1, y2, x1, x2) for (x1, y1, x2, y2) in (faces[i] for i in idxs.tolist())]
+    before = blend.blend_masked_.launches
+    outs = [blend.paste_masked(pred, frames, idxs.long(), *planes, Ho=Ho, Wo=Wo),
+            blend.make_masked_paste_fn(S, Ho, Wo, H, W)(pred.contiguous(), frames, idxs, *planes)]
+    inplace = picked.clone()
+    outs.append(blend.blend_masked_(pred, inplace, idxs, *planes, Ho=Ho, Wo=Wo))
+    torch.cuda.synchronize()
+    assert blend.blend_masked_.launches == before + 3
+    for got in outs:
+        assert got.shape == (B, H, W, 3) and got.dtype == torch.uint8
+        assert int((got.int() - want.int()).abs().max()) <= 1
+        assert _outside_equal(got, picked, regions)
+
+
+@pytest.mark.cuda
+def test_paste_entries_reject_what_they_do_not_take(cuda):
+    pred = torch.zeros((2, S, S, 3), dtype=torch.uint8, device=cuda)
+    frames = torch.zeros((3, H, W, 3), dtype=torch.uint8, device=cuda)
+    idxs = torch.zeros((2,), dtype=torch.int32, device=cuda)
+    boxes = torch.zeros((3, 4), dtype=torch.int32, device=cuda)
+    org, sc = torch.zeros((3, 2), dtype=torch.int32, device=cuda), boxes.clone()
+    masks = torch.zeros((3, 240, 256), dtype=torch.uint8, device=cuda)
+    rect = blend.make_resize_paste_fn(S, 240, 256, H, W)
+    masked = blend.make_masked_paste_fn(S, 240, 256, H, W)
+    bad_rect = [(pred.float(), frames, idxs, boxes), (pred, frames, idxs.float(), boxes),
+                (pred, frames, idxs, boxes.long()), (pred, frames.cpu(), idxs, boxes),
+                (pred, frames, idxs.cpu(), boxes), (pred[:1], frames, idxs, boxes),
+                (pred, frames[:, :, ::2], idxs, boxes), (pred, frames, idxs, boxes[:, :3]),
+                (pred.transpose(1, 2), frames, idxs, boxes),
+                (pred, frames, idxs, boxes.t().contiguous().t())]
+    before = blend.blend_rect_.launches, blend.blend_masked_.launches
+    for args in bad_rect:
+        with pytest.raises(ValueError):
+            rect(*args)
+        with pytest.raises(ValueError):
+            blend.paste_rect(*args, Ho=240, Wo=256)
+    bad_masked = [(pred, frames, idxs, org.long(), sc, masks), (pred, frames, idxs, org, sc,
+                                                                  masks[:, :, :128]),
+                  (pred, frames, idxs, org, sc, masks.cpu()), (pred, frames, idxs[:1], org, sc,
+                                                              masks),
+                  (pred, frames.transpose(1, 2), idxs, org, sc, masks)]
+    for args in bad_masked:
+        with pytest.raises(ValueError):
+            masked(*args)
+    with pytest.raises(ValueError):
+        blend.make_resize_paste_fn(S, 512, 256, H, W)  # bucket taller than the frame
+    with pytest.raises(ValueError):
+        blend.paste_rect(pred, frames, idxs, boxes, Ho=240, Wo=256, feather=-1)
+    assert (blend.blend_rect_.launches, blend.blend_masked_.launches) == before
+
+
+@pytest.mark.cuda
+def test_paste_call_launches_one_kernel(cuda):
+    """One paste call of each kind is one CUDA kernel on the card: no
+    gather, cast or copy beside it (a torch.profiler window)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(0)
+    frames = torch.from_numpy(rng.integers(0, 256, (4, H, W, 3), dtype=np.uint8)).to(cuda)
+    pred = torch.from_numpy(rng.integers(0, 256, (16, S, S, 3), dtype=np.uint8)).to(cuda)
+    idxs = torch.from_numpy(rng.integers(0, 4, (16,)).astype(np.int32)).to(cuda)
+    boxes = torch.tensor([(120, 360, 200, 440)] * 4, dtype=torch.int32, device=cuda)
+    faces, planes_np, Ho, Wo = _masked_planes(rng, H, W, 4, "inside")
+    planes = [torch.from_numpy(p).to(cuda) for p in planes_np]
+    rect = blend.make_resize_paste_fn(S, 240, 256, H, W)
+    masked = blend.make_masked_paste_fn(S, Ho, Wo, H, W)
+    for call in (lambda: rect(pred, frames, idxs, boxes),
+                 lambda: masked(pred, frames, idxs, *planes)):
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        assert len(kernels) == 1, [e.name for e in kernels]
+        assert "paste_kernel" in kernels[0].name
 
 
 @pytest.mark.cuda

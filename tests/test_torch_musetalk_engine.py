@@ -225,7 +225,8 @@ def test_avatar_directory_round_trip(model, tmp_path):
     layout; ``load_avatar`` reads back the same frames, masks, boxes and
     latents as ``avatar_from_arrays`` builds in memory."""
     synthetic.make_synthetic_musetalk_avatar(str(tmp_path / "avatars" / "d1"),
-                                             model["vae_params"], n_frames=3, seed=4)
+                                             model["vae_params"], n_frames=3, seed=4,
+                                             device="cpu")
     got = plugin.load_avatar("d1", str(tmp_path), device="cpu")
     want = _avatar(model, "d1", 3, 4)
     for key in ("coord_list_cycle", "mask_coords_list_cycle"):
@@ -236,3 +237,20 @@ def test_avatar_directory_round_trip(model, tmp_path):
         np.testing.assert_array_equal(a[..., 0], b)  # read back as BGR
     assert got["latent_cycle_host"].shape == (3, 32, 32, 8)
     np.testing.assert_array_equal(got["latent_cycle_host"], want["latent_cycle_host"])
+
+
+@pytest.mark.parametrize("build", ["encode_avatar_latents", "make_synthetic_musetalk_avatar"])
+def test_avatar_builds_default_to_the_card(model, tmp_path, monkeypatch, build):
+    """Both avatar builders run on the card unless the caller asks for the
+    CPU: on a host without a CUDA device their default raises, and the
+    directory builder writes nothing first."""
+    from livetalking_tpu_torch.models import musetalk as mt
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    faces = synthetic.musetalk_avatar_arrays(n_frames=1, seed=6)["faces"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        if build == "encode_avatar_latents":
+            mt.encode_avatar_latents(model["vae_params"], faces)
+        else:
+            synthetic.make_synthetic_musetalk_avatar(str(tmp_path / "d"), model["vae_params"])
+    assert not (tmp_path / "d").exists()
