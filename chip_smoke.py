@@ -5,8 +5,9 @@
 
 Drives ``livetalking_tpu_torch`` on the card with random weights from fixed
 seeds, through the entry points a server uses, at full width: Wav2Lip-256,
-and MuseTalk (U-Net (320, 640, 1280, 1280), the full sd-vae-ft-mse,
-Whisper-tiny) in bf16 and in W8A8 int8 at batch 16.
+MuseTalk (U-Net (320, 640, 1280, 1280), the full sd-vae-ft-mse,
+Whisper-tiny) in bf16 and in W8A8 int8, and the HuBERT-fed families
+(HuBERT-large, the Ultralight U-Net, ER-NeRF), at batch 16.
 
   1. device     — ``nvidia-smi`` name and power limit; compute capability 9.0.
   2. build      — every kernel under ``livetalking_tpu_torch/csrc``, one nvcc
@@ -24,6 +25,8 @@ Whisper-tiny) in bf16 and in W8A8 int8 at batch 16.
                   ``cuda_ms`` and ``device_ms``, the full-frame gather the
                   fused form absorbs (context), both bounds, the step's host
                   time at B=32.
+     blend_s168 — the same rect kernel at Ultralight's S = 168 (504-byte
+                  crop rows), B=16 from 8 frames and B=128 from 400.
   4. blend_mask — the same for the masked kernel on the synthetic MuseTalk
                   avatar's geometry (blurred ellipse masks in a 288x384
                   bucket), outside the face bbox. Then one paste step call of
@@ -68,14 +71,30 @@ Whisper-tiny) in bf16 and in W8A8 int8 at batch 16.
                   avatars encoded by the port's VAE on the card.
  13. musetalk int8 engine — the same with ``--vae_int8 --unet_int8`` and
                   ``LT_FUSED_VAE=1``.
- 14. paced      — only with ``--paced``: MuseTalk sessions whose frames are
+ 14. hubert     — HuBERT-large through the session's extractor on one
+                  16,640-sample window: bf16 weights (f32 activations, the
+                  reference's arithmetic) against f32 weights, relative L2
+                  error <= 5e-2; ms per window, bound, kernel profile.
+ 15. ultralight model — the B=16 bf16 step on reference-layout random
+                  weights against f32 (>= 30 dB), its time, bound and
+                  profile; the grouped step at n=2 and 8 sessions with
+                  distinct weights within 1 LSB of the per-avatar steps.
+ 16. ultralight engine — ``--model ultralight --coalesce
+                  --device_paste_back``, two sessions on avatars with
+                  distinct weights: one kernel-1 launch per batch.
+ 17. ernerf     — the render on the card against the CPU (16 px, 4
+                  samples, 1 LSB); B=16 at 128 px, 32 samples (ms, peak
+                  memory); one ``--model ernerf`` session.
+ 18. paced      — only with ``--paced``: MuseTalk sessions whose frames are
                   taken at 25 fps, started 160 ms apart, with the shared
                   Whisper feature coalescer and without it (with, without,
                   without, with); speech frames/s, starved ticks, requests
                   per super-batch and request latency of each run.
 
 In each engine phase every kernel count is set to 0 just before the
-sessions start and read after: every kernel of the path must have launched.
+sessions start and read after: every kernel of the path must have launched
+(the kernels line's ``blend`` row also carries the Ultralight engine's
+launches and the S = 168 times).
 Kernel times are medians of 60 runs (CUDA events). Prints one line per
 phase, then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
@@ -112,6 +131,8 @@ NO_INT8_CONV = "null (PyTorch has no int8 convolution on CUDA)"
 FUSED_REF_DB = 35.0  # tests/test_pallas_conv.py::test_fused_decode_matches_xla_path
 FUSED_SERVED_DB = 30.0  # fused vs unfused at the served shapes (phase_musetalk_int8_model)
 INT8_E2E_DB = 24.0  # tests/test_int8_quality.py's end-to-end bar
+UL_PSNR_DB = 30.0  # the bf16 Ultralight step against f32 on the same weights
+HUBERT_REL_ERR = 5e-2  # HuBERT-large features, bf16 weights against f32 (relative L2)
 
 S, H, W = 256, 480, 640
 BOX = (120, 360, 200, 440)  # 240x240 face box centred in a 480x640 frame
@@ -231,6 +252,9 @@ def log_ptxas_report(proc) -> None:
 # the 480x640 one)
 PASTE_SHAPES = [((H, W), 16, 8), ((H, W), 32, 8), ((H, W), 128, 8), ((1080, 1920), 32, 8),
                 ((H, W), 128, 400), ((1080, 1920), 32, 400)]
+# kernel 1 at Ultralight's S = 168: B=16 from an 8-frame cycle, B=128 from a
+# store of real cycle length (the kernels line reads the latter)
+UL_PASTE_SHAPES = [((H, W), 16, 8), ((H, W), 128, 400)]
 HD_OFFSET = (300, 640)  # the 480x640 face geometry moved into a 1080x1920 frame
 SESSION_FRAMES = 16  # frames per session in a super-batch (Wav2Lip's batch)
 
@@ -296,15 +320,18 @@ def time_paste(torch, phase: str, shape, B: int, paste, inplace, gather, plain, 
     return r
 
 
-def phase_blend(torch, blend, peak_bw: float, peak_f32: float, clock_hz: float) -> dict:
-    """The rect paste kernel, both forms, against its plain version at each
-    of ``PASTE_SHAPES`` (240x256 bucket, feather 0 and 9 checked, 0 timed):
-    at most 1 LSB apart, byte-identical outside the bbox; then timed. Also
-    returns the paste step at B=32, 480x640 (``step``)."""
-    rng = np.random.default_rng(1)
+def phase_blend(torch, blend, peak_bw: float, peak_f32: float, clock_hz: float, S: int = S,
+                shapes=PASTE_SHAPES, phase: str = "blend", seed: int = 1) -> dict:
+    """The rect paste kernel, both forms, against its plain version for (S,
+    S) crops at each of ``shapes`` (240x256 bucket, feather 0 and 9
+    checked, 0 timed): at most 1 LSB apart, byte-identical outside the
+    bbox; then timed. Also returns the paste step at B=32, 480x640
+    (``step``) when ``shapes`` has it."""
+    rng = np.random.default_rng(seed)
     max_err = 0
     rows = {}
-    for (Hf, Wf), B, N in PASTE_SHAPES:
+    step = None
+    for (Hf, Wf), B, N in shapes:
         oy, ox = HD_OFFSET if Hf != H else (0, 0)
         frames = paste_frames(torch, rng, N, Hf, Wf)
         boxes_np = []
@@ -334,9 +361,9 @@ def phase_blend(torch, blend, peak_bw: float, peak_f32: float, clock_hz: float) 
                 torch.cuda.synchronize()
                 err = int((got.int() - want.int()).abs().max())
                 if err > TOL_LSB or not torch.equal(got[outside], picked[outside]):
-                    raise AssertionError(f"blend {form} {Hf}x{Wf} B={B} feather={feather}: max "
-                                         f"err {err} (tolerance {TOL_LSB} LSB) or pixels "
-                                         "outside the bbox changed")
+                    raise AssertionError(f"{phase} {form} {Hf}x{Wf} B={B} S={S} "
+                                         f"feather={feather}: max err {err} (tolerance "
+                                         f"{TOL_LSB} LSB) or pixels outside the bbox changed")
                 max_err = max(max_err, err)
         fn = blend.make_resize_paste_fn(S, Ho, Wo, Hf, Wf)
         paste = lambda: fn(pred, frames, idxs, boxes)  # noqa: E731
@@ -354,7 +381,7 @@ def phase_blend(torch, blend, peak_bw: float, peak_f32: float, clock_hz: float) 
                  for (y1, y2, x1, x2) in (boxes_np[i] for i in idxs.tolist()))
         frame_bytes = Hf * Wf * 3
         r = time_paste(
-            torch, "blend", (Hf, Wf), B, paste,
+            torch, phase, (Hf, Wf), B, paste,
             lambda: blend.blend_rect_(pred, buf, box_b, Ho=Ho, Wo=Wo),
             lambda: frames.index_select(0, idxs),
             lambda: blend.resize_paste_plain(pred, frames, idxs, boxes, S=S, Ho=Ho, Wo=Wo,
@@ -364,7 +391,7 @@ def phase_blend(torch, blend, peak_bw: float, peak_f32: float, clock_hz: float) 
         rows[(Hf, Wf, B, N)] = r
         del frames, picked, buf, outside
         torch.cuda.empty_cache()
-    log("blend", max_abs_err=max_err)
+    log(phase, S=S, max_abs_err=max_err)
     return {"max_abs_err": max_err, "rows": rows, "step": step}
 
 
@@ -1020,10 +1047,10 @@ def phase_model(torch, w2l) -> dict:
     return {"step_ms": ms}
 
 
-def profile_step(torch, run, steps: int, step_ms: float) -> None:
+def profile_step(torch, run, steps: int, step_ms: float, tag: str = "profile") -> None:
     """Device time of ``steps`` runs by kernel (torch.profiler, kernel
     events only), the top entries, and the kernels' busy share of the step
-    time ``step_ms`` measured without the profiler."""
+    time ``step_ms`` measured without the profiler; logged under ``tag``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1037,10 +1064,11 @@ def profile_step(torch, run, steps: int, step_ms: float) -> None:
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     total = sum(r[1] for r in rows)
-    log("profile", steps=steps, kernel_ms_per_step=f"{total:.3f}", step_ms=f"{step_ms:.3f}",
-        device_busy_share=f"{total / step_ms:.3f}")
+    log(tag, steps=steps, kernel_ms_per_step=f"{total:.3f}", step_ms=f"{step_ms:.3f}",
+        device_busy_share=f"{total / step_ms:.3f}",
+        launches_per_step=sum(r[2] for r in rows))
     for key, t, n in rows[:12]:
-        log("profile", kernel=json.dumps(key[:90]), ms_per_step=f"{t:.3f}",
+        log(tag, kernel=json.dumps(key[:90]), ms_per_step=f"{t:.3f}",
             share=f"{t / max(total, 1e-9):.3f}", calls_per_step=n)
 
 
@@ -1152,21 +1180,22 @@ def speech_classifier(app, avatar_ids, box):
 
 
 def drive_sessions(app, session_manager, plugin, avatar_ids, box, watch) -> dict:
-    """Two free-running sessions, text in, full frames out. Runs until both
-    said at least 32 speech frames, stopped speaking, and the plugin's
-    shared scheduler (made by the first session) resolved every request.
-    ``watch()`` is read after."""
+    """Free-running sessions, one per avatar, text in, full frames out. Runs
+    until each said at least 32 speech frames, stopped speaking, and the
+    plugin's shared scheduler (made by the first session), where it has
+    one, resolved every request. ``watch()`` is read after."""
     is_speech = speech_classifier(app, avatar_ids, box)
+    n = len(avatar_ids)
     with open_sessions(app, session_manager, avatar_ids) as sessions:
-        sched = plugin._shared["scheduler"]
+        sched = getattr(plugin, "_shared", {}).get("scheduler")
         for k, s in enumerate(sessions):
             s.put_msg_txt(f"session {k} reads a sentence long enough for many batches of frames.")
-        speech, frames = [0, 0], [0, 0]
-        t_first, t_last = [None, None], [None, None]
+        speech, frames = [0] * n, [0] * n
+        t_first, t_last = [None] * n, [None] * n
         deadline = time.time() + 240
         while time.time() < deadline:
             if (min(speech) >= 32 and not any(s.is_speaking() for s in sessions)
-                    and sched.requests_run == sched.requests_submitted):
+                    and (sched is None or sched.requests_run == sched.requests_submitted)):
                 break
             for k, s in enumerate(sessions):
                 try:
@@ -1181,13 +1210,15 @@ def drive_sessions(app, session_manager, plugin, avatar_ids, box, watch) -> dict
         counts = watch()
     if min(speech) < 32:
         raise AssertionError(f"speech frames per session {speech} < 32 within the time limit")
+    r = {"speech": speech, "frames": frames, "counts": counts, "sched": sched,
+         "fps": [speech[k] / max(t_last[k] - t_first[k], 1e-9) for k in range(n)]}
+    if sched is None:
+        return r
     if sched.requests_run != sched.requests_submitted or sched.requests_run == 0:
         raise AssertionError(f"scheduler resolved {sched.requests_run} of "
                              f"{sched.requests_submitted} requests submitted")
     lat = np.asarray(sched.latency_s) * 1e3
-    return {"speech": speech, "frames": frames, "counts": counts, "sched": sched,
-            "fps": [speech[k] / max(t_last[k] - t_first[k], 1e-9) for k in range(2)],
-            "latency_p50_ms": float(np.percentile(lat, 50)),
+    return {**r, "latency_p50_ms": float(np.percentile(lat, 50)),
             "mean_coalesced": float(np.mean(sched.batch_sizes))}
 
 
@@ -1374,6 +1405,278 @@ def phase_paced_ab(torch, app, muse, synthetic, sd_vae, session_manager, counts)
                 feature_requests=r["feature_requests"])
 
 
+def ultralight_state_dict(ul, seed: int) -> dict:
+    """A random ``ultralight.pth`` state dict in the reference layout, with
+    numpy: PyTorch-default-sized convs and BatchNorm with random running
+    stats, so activations stay in range as a trained net's do (the
+    He-normal init saturates the sigmoid almost everywhere)."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+
+    def conv(key, spec, bias=False):
+        k = spec.kernel
+        lim = 1.0 / np.sqrt(spec.cin // spec.groups * k * k)
+        sd[f"{key}.weight"] = rng.uniform(-lim, lim, (spec.cout, spec.cin // spec.groups, k, k))
+        if bias:
+            sd[f"{key}.bias"] = rng.uniform(-lim, lim, spec.cout)
+
+    def bn(key, c):
+        sd[f"{key}.weight"] = rng.uniform(0.5, 1.5, c)
+        sd[f"{key}.bias"] = rng.normal(0, 0.2, c)
+        sd[f"{key}.running_mean"] = rng.normal(0, 0.3, c)
+        sd[f"{key}.running_var"] = rng.uniform(0.5, 2.0, c)
+
+    for name, prefixes in ul._PREFIXES.items():
+        for prefix, (_, specs, _) in zip(prefixes, ul.ARCH[name]):
+            for c, spec in zip((0, 3, 6), specs):
+                conv(f"{prefix}.conv.{c}", spec)
+                bn(f"{prefix}.conv.{c + 1}", spec.cout)
+    for i in (3, 5):
+        spec = ul.ARCH[f"a_conv{i}"][0][1]
+        conv(f"audio_model.conv{i}", spec, bias=True)
+        bn(f"audio_model.bn{i}", spec.cout)
+    conv("outc.conv", ul.ARCH["outc"][0][1], bias=True)
+    return {k: v.astype(np.float32) for k, v in sd.items()}
+
+
+def conv_work(torch, fn) -> tuple:
+    """(multiply-adds, bytes) of one call of ``fn``: every convolution's and
+    matrix product's MACs from its shapes, and its operands read once and
+    its output written once."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    aten = torch.ops.aten
+    work = {"macs": 0, "bytes": 0}
+    # op -> position of the operand whose last dimension is the sum's length
+    # (outside inference mode conv2d and matmul arrive decomposed)
+    gemms = {aten.mm.default: 0, aten.bmm.default: 0, aten.matmul.default: 0,
+             aten.addmm.default: 1, aten.baddbmm.default: 1, aten.baddbmm.out: 1}
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            ts = [a for a in args if isinstance(a, torch.Tensor)]
+            if func in (aten.convolution.default, aten.conv2d.default):
+                work["macs"] += out.numel() * args[1][0].numel()
+            elif func in gemms:
+                work["macs"] += out.numel() * args[gemms[func]].shape[-1]
+            else:
+                return out
+            work["bytes"] += sum(t.numel() * t.element_size() for t in ts + [out])
+            return out
+
+    with Count():
+        fn()
+    return work["macs"], work["bytes"]
+
+
+def phase_hubert(torch, hub, ul, hubert_features, default_opt, peak_bw: float,
+                 peak_f32: float) -> dict:
+    """HuBERT-large (seed 0) through the extractor a session runs, on one
+    16,640-sample window at B=16 (51 encoder frames): the served weights
+    (bf16; activations f32, as the reference computes them) against f32
+    weights with TF32 off, relative L2 error of the (16, 16, 32, 32)
+    features at most ``HUBERT_REL_ERR``; ms per window, its bound (the bf16
+    weights read once; the MACs at the f32 rate)."""
+    cfg = hub.LARGE
+    opt = default_opt(device="cuda", batch_size=16)
+    f32 = hub.init_params(0, cfg, torch.float32, "cuda")
+    params = {"float32": f32, "bfloat16": ul.cast_params(f32, torch.bfloat16)}
+    del f32
+    feats, extractors = {}, {}
+    for name, p in params.items():
+        hf = hubert_features.HubertFeatures(opt, hubert_params=p, hubert_cfg=cfg)
+        extractors[name] = hf
+    wav = (0.1 * np.random.default_rng(8).standard_normal(hf._n_samples)).astype(np.float32)
+    torch.backends.cudnn.allow_tf32 = False
+    feats["float32"] = extractors["float32"]._fn(wav)
+    torch.backends.cudnn.allow_tf32 = True
+    feats["bfloat16"] = extractors["bfloat16"]._fn(wav)
+    got, want = feats["bfloat16"], feats["float32"]
+    if tuple(got.shape) != (16, 16, 32, 32) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"hubert features {tuple(got.shape)}, finite "
+                             f"{bool(torch.isfinite(got).all())}")
+    rel = float((got - want).norm() / want.norm())
+    if not rel <= HUBERT_REL_ERR:
+        raise AssertionError(f"hubert bf16 weights vs f32: relative error {rel} > "
+                             f"{HUBERT_REL_ERR}")
+    hf = extractors["bfloat16"]
+    ms = cuda_ms(lambda: hf._fn(wav), warmup=3, iters=20)
+    w_dev = torch.from_numpy(wav).cuda()[None].to(torch.bfloat16)
+    bf16_act_ms = cuda_ms(lambda: hub.apply(params["bfloat16"], cfg, w_dev), warmup=3, iters=20)
+    macs, _ = conv_work(torch, lambda: hub.apply(params["bfloat16"], cfg,
+                                                 torch.from_numpy(wav).cuda()[None]))
+    n_params = ul.count_params(params["bfloat16"])
+    nbytes = 2 * n_params + 4 * wav.size + 4 * got.numel()
+    b_ms, b_by = bound(nbytes / peak_bw * 1e3, 2 * macs / peak_f32 * 1e3)
+    profile_step(torch, lambda: hf._fn(wav), steps=3, step_ms=ms, tag="hubert_profile")
+    log("hubert", config="large", window_samples=wav.size, frames=cfg.out_length(wav.size),
+        ms_per_window=f"{ms:.3f}", bf16_activations_ms=f"{bf16_act_ms:.3f}",
+        rel_err_vs_f32=f"{rel:.5f}", bar=HUBERT_REL_ERR, params=n_params,
+        GFLOP=f"{2 * macs / 1e9:.2f}", weight_GB=f"{2 * n_params / 1e9:.3f}",
+        bound_ms=f"{b_ms:.4f}", bound_by=b_by, bytes_ms=f"{nbytes / peak_bw * 1e3:.4f}")
+    del params, extractors
+    torch.cuda.empty_cache()
+    return {"ms": ms, "rel_err": rel}
+
+
+def phase_ultralight_model(torch, ul, synthetic, peak_bw: float, peak_bf16: float) -> dict:
+    """The Ultralight step at B=16 on reference-layout random weights: bf16
+    against f32 (TF32 off) on the same weights at least ``UL_PSNR_DB``;
+    the bf16 step's time, inferfps and bound; the grouped step at n=2 and
+    n=8 sessions with distinct weights, each block within 1 LSB of that
+    avatar's own step, and its time beside n per-avatar steps."""
+    B = 16
+    rng = np.random.default_rng(9)
+    trees = [ul.convert_torch_state_dict(ultralight_state_dict(ul, s), torch.float32, "cuda")
+             for s in range(8)]
+    bf = [ul.cast_params(t, torch.bfloat16) for t in trees]
+    crops = torch.from_numpy(synthetic.ultralight_avatar_arrays(n_frames=16, seed=9)["crops"])
+    cyc = crops.cuda()
+    audio = torch.from_numpy((0.5 * rng.standard_normal((8 * B, 16, 32, 32)))
+                             .astype(np.float32)).cuda()
+    idx = torch.from_numpy(np.concatenate([(np.arange(B) + 3 * s) % 16 for s in range(8)])
+                           .astype(np.int32)).cuda()
+    solo = {dt: ul.make_infer_fn(B, dt) for dt in (torch.float32, torch.bfloat16)}
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ref = solo[torch.float32](trees[0], cyc, idx[:B], audio[:B])
+    torch.backends.cudnn.allow_tf32 = True
+    out = solo[torch.bfloat16](bf[0], cyc, idx[:B], audio[:B])
+    db = psnr_u8(out.cpu(), ref.cpu())
+    unsat = float(((ref > 0) & (ref < 255)).float().mean())
+    if tuple(out.shape) != (B, 160, 160, 3) or not db >= UL_PSNR_DB:
+        raise AssertionError(f"ultralight bf16 step {tuple(out.shape)}: {db:.2f} dB against "
+                             f"f32 (bar {UL_PSNR_DB})")
+    run = lambda: solo[torch.bfloat16](bf[0], cyc, idx[:B], audio[:B])  # noqa: E731
+    ms = cuda_ms(run, warmup=3, iters=20)
+    macs, act_bytes = conv_work(torch, run)
+    b_ms, b_by = bound(act_bytes / peak_bw * 1e3, 2 * macs / peak_bf16 * 1e3)
+    log("ultralight_model", B=B, dtype="bfloat16", step_ms=f"{ms:.3f}",
+        inferfps=f"{B / ms * 1e3:.1f}", psnr_bf16_vs_f32_db=f"{db:.2f}", bar_db=UL_PSNR_DB,
+        unsaturated_share=f"{unsat:.3f}", GFLOP=f"{2 * macs / 1e9:.2f}",
+        MB=f"{act_bytes / 1e6:.1f}", bound_ms=f"{b_ms:.4f}", bound_by=b_by,
+        share_of_bound=f"{b_ms / ms:.3f}", params=ul.count_params(trees[0]))
+    profile_step(torch, run, steps=3, step_ms=ms, tag="ultralight_profile")
+
+    stacked = ul.stack_params(bf)
+    grouped = {}
+    for n in (2, 8):
+        slots = torch.arange(n, device="cuda").flip(0)  # blocks in reverse slot order
+        step = ul.make_grouped_infer_fn(n, B, torch.bfloat16)
+        call = lambda: step(stacked, cyc, idx[:n * B], slots, audio[:n * B])  # noqa: E731
+        got = call()
+        err = 0
+        for k, s in enumerate(slots.tolist()):
+            sl = slice(k * B, (k + 1) * B)
+            want = solo[torch.bfloat16](bf[s], cyc, idx[sl], audio[sl])
+            err = max(err, int((got[sl].int() - want.int()).abs().max()))
+        if err > TOL_LSB:
+            raise AssertionError(f"grouped step n={n}: {err} LSB from the per-avatar steps")
+        g_ms = cuda_ms(call, warmup=3, iters=20)
+        g_macs, g_bytes = conv_work(torch, call)
+        g_bound, g_by = bound(g_bytes / peak_bw * 1e3, 2 * g_macs / peak_bf16 * 1e3)
+        grouped[n] = {"ms": g_ms, "max_lsb": err}
+        if n == 8:
+            profile_step(torch, call, steps=3, step_ms=g_ms, tag="ultralight_grouped_profile")
+        log("ultralight_model", grouped_sessions=n, B=B, step_ms=f"{g_ms:.3f}",
+            per_avatar_steps_ms=f"{n * ms:.3f}", frames_per_s=f"{n * B / g_ms * 1e3:.1f}",
+            bound_ms=f"{g_bound:.4f}", bound_by=g_by, share_of_bound=f"{g_bound / g_ms:.3f}",
+            max_lsb_vs_per_avatar=err)
+    del trees, bf, stacked
+    torch.cuda.empty_cache()
+    return {"step_ms": ms, "psnr_db": db, "grouped": grouped}
+
+
+def phase_ultralight_engine(torch, app, ua, ul, blend, synthetic, session_manager) -> dict:
+    """Two coalesced Ultralight sessions on avatars with distinct weights,
+    ``--device_paste_back``: every super-batch step pastes with one launch
+    of kernel 1 at S = 168."""
+    from livetalking_tpu_torch.config import default_opt
+
+    ids, box = ("smoke_ua", "smoke_ub"), None
+    for k, aid in enumerate(ids):
+        a = synthetic.ultralight_avatar_arrays(n_frames=8 + 2 * k, frame_hw=(H, W), seed=40 + k)
+        weights = ul.convert_torch_state_dict(ultralight_state_dict(ul, 20 + k), torch.float32,
+                                              "cuda")
+        app.global_avatars[aid] = ua.avatar_from_arrays(aid, a["frames"], a["crops"],
+                                                        a["coords"], weights, device="cuda")
+        box = a["coords"][0]
+    opt = default_opt(model="ultralight", transport="queue", tts="dummy", coalesce=True,
+                      device_paste_back=True, batch_size=16, device="cuda",
+                      avatar_id=ids[0], max_session=2)
+    t0 = time.time()
+    app.load_plugin_stack(opt)
+    log("ultralight_engine", load_plugin_stack_s=f"{time.time() - t0:.2f}")
+    try:
+        # this path starts here: its kernel count from 0
+        blend.blend_rect_.launches = 0
+        r = drive_sessions(app, session_manager, ua, ids, box,
+                           lambda: {"blend": blend.blend_rect_.launches})
+        launches, sched = r["counts"]["blend"], r["sched"]
+        if launches < sched.batches_run or sched.batches_run == 0:
+            raise AssertionError(f"blend launches {launches} < scheduler batches "
+                                 f"{sched.batches_run}")
+        log("ultralight_engine", sessions=2, speech_frames=r["speech"], frames=r["frames"],
+            speech_fps_per_session=[f"{v:.1f}" for v in r["fps"]],
+            batches_run=sched.batches_run, requests_run=sched.requests_run,
+            requests_submitted=sched.requests_submitted,
+            mean_coalesced=f"{r['mean_coalesced']:.2f}",
+            latency_p50_ms=f"{r['latency_p50_ms']:.1f}", blend_launches=launches)
+        return {"launches": launches}
+    finally:
+        ua.reset_shared_scheduler()
+
+
+def phase_ernerf(torch, app, ea, ernerf, synthetic, session_manager) -> dict:
+    """ER-NeRF: the render on the card against the CPU at 16 px, 4 samples
+    (at most 1 LSB); ``render_frame_batch`` at B=16, 128 px, 32 samples
+    (ms, peak memory); then one session through the engine."""
+    from livetalking_tpu_torch.config import default_opt
+
+    rng = np.random.default_rng(11)
+    cpu = ernerf.init_params(0, audio_dim=ea.AUDIO_DIM)
+    gpu = ernerf.params_from_jax(cpu, "cuda")
+    feats = torch.from_numpy((0.1 * rng.standard_normal((2, ea.AUDIO_DIM))).astype(np.float32))
+    bg = torch.from_numpy(rng.random((2, 16, 16, 3)).astype(np.float32))
+    want = ernerf.render_frame_batch(cpu, feats, bg, size=16, n_samples=4)
+    got = ernerf.render_frame_batch(gpu, feats.cuda(), bg.cuda(), size=16, n_samples=4).cpu()
+    err = int((got.int() - want.int()).abs().max())
+    if err > TOL_LSB:
+        raise AssertionError(f"ernerf render on the card differs from the CPU by {err} LSB")
+    B, size, ns = 16, 128, 32
+    feats = torch.from_numpy((0.1 * rng.standard_normal((B, ea.AUDIO_DIM)))
+                             .astype(np.float32)).cuda()
+    bg = torch.from_numpy(rng.random((B, size, size, 3)).astype(np.float32)).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    out = ernerf.render_frame_batch(gpu, feats, bg, size=size, n_samples=ns)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if tuple(out.shape) != (B, size, size, 3) or out.dtype != torch.uint8:
+        raise AssertionError(f"ernerf render {tuple(out.shape)} {out.dtype}")
+    ms = cuda_ms(lambda: ernerf.render_frame_batch(gpu, feats, bg, size=size, n_samples=ns),
+                 warmup=1, iters=5)
+    log("ernerf", card_vs_cpu_max_lsb=err, B=B, size=size, samples=ns,
+        render_ms=f"{ms:.3f}", Msamples_per_s=f"{B * size * size * ns / ms / 1e3:.1f}",
+        peak_memory_GB=f"{peak_gb:.2f}")
+    del feats, bg, out
+    torch.cuda.empty_cache()
+
+    a = synthetic.ultralight_avatar_arrays(n_frames=8, frame_hw=(H, W), seed=50)
+    x1, y1, x2, y2 = a["coords"][0]
+    app.global_avatars["smoke_nf"] = ea.avatar_from_arrays(
+        "smoke_nf", a["frames"], [(y1, y2, x1, x2)] * 8, device="cuda")
+    opt = default_opt(model="ernerf", transport="queue", tts="dummy", batch_size=B,
+                      device="cuda", avatar_id="smoke_nf", max_session=1)
+    t0 = time.time()
+    app.load_plugin_stack(opt)
+    log("ernerf_engine", load_plugin_stack_s=f"{time.time() - t0:.2f}")
+    r = drive_sessions(app, session_manager, ea, ("smoke_nf",), (x1, y1, x2, y2), lambda: {})
+    log("ernerf_engine", sessions=1, speech_frames=r["speech"], frames=r["frames"],
+        speech_fps=f"{r['fps'][0]:.1f}")
+    return {"render_ms": ms, "fps": r["fps"][0]}
+
+
 def main(argv) -> int:
     import argparse
 
@@ -1389,11 +1692,17 @@ def main(argv) -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from livetalking_tpu_torch import app
+    from livetalking_tpu_torch.audio_features import hubert_features
     from livetalking_tpu_torch.audio_features import whisper_features as wf
+    from livetalking_tpu_torch.avatars import ernerf_avatar as ea
     from livetalking_tpu_torch.avatars import musetalk_avatar as muse
+    from livetalking_tpu_torch.avatars import ultralight_avatar as ua
     from livetalking_tpu_torch.avatars import wav2lip_avatar as plugin
+    from livetalking_tpu_torch.config import default_opt
+    from livetalking_tpu_torch.models import ernerf, hubert
     from livetalking_tpu_torch.models import musetalk as mt
     from livetalking_tpu_torch.models import sd_unet, sd_vae
+    from livetalking_tpu_torch.models import ultralight as ul
     from livetalking_tpu_torch.models import wav2lip as w2l
     from livetalking_tpu_torch.ops import _build, attention, blend, conv
     from livetalking_tpu_torch.server.session_manager import session_manager
@@ -1433,6 +1742,8 @@ def main(argv) -> int:
     b = timed("blend", phase_blend, torch, blend, peak_bw, peak_f32, clock_mhz * 1e6)
     bm = timed("blend_mask", phase_blend_mask, torch, blend, synthetic, peak_bw, peak_f32,
                clock_mhz * 1e6)
+    b168 = timed("blend_s168", phase_blend, torch, blend, peak_bw, peak_f32, clock_mhz * 1e6,
+                 168, UL_PASTE_SHAPES, "blend_s168", 169)
     for r in (b, bm):
         check_one_kernel_per_paste(torch, r["step"])
     log("paste_kernels_per_call", rect=1, mask=1)
@@ -1449,6 +1760,12 @@ def main(argv) -> int:
                conv, synthetic, sd_vae, session_manager)
     qe = timed("musetalk_int8_engine", phase_musetalk_engine, torch, app, muse, blend,
                attention, conv, synthetic, sd_vae, session_manager, True)
+    timed("hubert", phase_hubert, torch, hubert, ul, hubert_features, default_opt, peak_bw,
+          peak_f32)
+    timed("ultralight_model", phase_ultralight_model, torch, ul, synthetic, peak_bw, peak_bf16)
+    ue = timed("ultralight_engine", phase_ultralight_engine, torch, app, ua, ul, blend,
+               synthetic, session_manager)
+    timed("ernerf", phase_ernerf, torch, app, ea, ernerf, synthetic, session_manager)
     if paced:
         timed("paced", phase_paced_ab, torch, app, muse, synthetic, sd_vae, session_manager,
               paced)
@@ -1469,9 +1786,15 @@ def main(argv) -> int:
                 "gather_ms": r["gather_ms"], "library_note": NO_LIBRARY}
 
     src = "livetalking_tpu_torch/csrc/"
+    s168 = b168["rows"][(H, W, 128, 400)]
     kernels = [
-        row("blend", src + "blend.cu", "livetalking_tpu/ops/pallas_blend.py:116",
-            e["launches"], b["max_abs_err"], paste_row(b["rows"][(H, W, 128, 400)]), None),
+        {**row("blend", src + "blend.cu", "livetalking_tpu/ops/pallas_blend.py:116",
+               e["launches"], max(b["max_abs_err"], b168["max_abs_err"]),
+               paste_row(b["rows"][(H, W, 128, 400)]), None),
+         # the Ultralight path's own run of kernel 1 (S = 168, B=128, 400-frame store)
+         "ultralight_launches": ue["launches"], "s168_ms": s168["paste_ms"],
+         "s168_device_ms": s168["paste_device_ms"], "s168_plain_ms": s168["plain_ms"],
+         "s168_bound_ms": s168["paste_bound_ms"], "s168_bound_by": s168["paste_bound_by"]},
         row("blend_mask", src + "blend.cu", "livetalking_tpu/ops/pallas_blend.py:141",
             me["blend_mask"], bm["max_abs_err"], paste_row(bm["rows"][(H, W, 128, 400)]), None),
         row("attention", src + "attention.cu", "livetalking_tpu/ops/pallas_attention.py:79",

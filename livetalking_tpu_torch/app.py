@@ -87,9 +87,8 @@ def load_plugin_stack(options):
     and the default avatar (unless it is already in ``global_avatars``)."""
     global opt, model, _load_avatar
     if options.model not in AVATAR_MODULES:
-        raise ValueError(
-            f"--model {options.model}: this package ports {sorted(AVATAR_MODULES)} "
-            "so far; the other families are queued in ROADMAP.md")
+        raise ValueError(f"--model {options.model}: unknown model; choose one of "
+                         f"{sorted(AVATAR_MODULES)}")
     resolve_device(options.device)
     opt = options
 
@@ -98,9 +97,15 @@ def load_plugin_stack(options):
     if opt.model == "wav2lip":
         model = mod.load_model(opt.modelfile or f"{opt.models_dir}/wav2lip.pth", opt)
         mod.warm_up(opt.batch_size, model, 256)
-    else:  # musetalk's warm-up runs the graph of its int8 flags
+    elif opt.model == "musetalk":  # its warm-up runs the graph of its int8 flags
         model = mod.load_model(opt)
         mod.warm_up(opt.batch_size, model, 256, opt)
+    elif opt.model == "ultralight":
+        model = mod.load_model(opt)
+        mod.warm_up(opt.batch_size, model, 160)
+    else:  # ernerf
+        model = mod.load_model(opt)
+        mod.warm_up(opt.batch_size, model, int(getattr(opt, "ernerf_size", 128) or 128))
     if opt.avatar_id not in global_avatars:
         global_avatars[opt.avatar_id] = _load_avatar(opt.avatar_id, opt.data_dir, opt.device)
 

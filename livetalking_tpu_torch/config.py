@@ -4,9 +4,11 @@ livetalking_tpu/config.py).
 Same flag surface, defaults and precedence (CLI > YAML > built-in
 defaults) as the reference package, so launch scripts keep working, plus
 ``--device`` (default ``cuda``), the port's counterpart of
-``JAX_PLATFORMS``. ``--model`` takes wav2lip and musetalk (bf16/f32, with
+``JAX_PLATFORMS``. ``--model`` takes wav2lip, musetalk (bf16/f32, with
 ``--whisper_short_window``, and W8A8 int8 with ``--vae_int8`` /
-``--unet_int8``, widened by ``--vae_mid_int8`` / ``--attn_int8``). Flags of
+``--unet_int8``, widened by ``--vae_mid_int8`` / ``--attn_int8``),
+ultralight and ernerf (``hubert_size``, ``ernerf_size`` and
+``ernerf_samples`` are options of the opt object, not flags). Flags of
 features that later slices port (meshes, profiling) are accepted and have
 no effect yet. ``customvideo_config`` JSON is post-parsed into
 ``opt.customopt``.
@@ -34,7 +36,7 @@ def _declare_flags(parser: argparse.ArgumentParser) -> None:
 
     # avatar model
     add("--model", type=str, default="wav2lip",
-        help="avatar model: wav2lip, musetalk (ultralight/ernerf: ROADMAP.md)")
+        help="avatar model: wav2lip, musetalk, ultralight, ernerf")
     add("--avatar_id", type=str, default="wav2lip256_avatar1",
         help="avatar id in data/avatars")
     add("--batch_size", type=int, default=16, help="inference batch size")
@@ -129,8 +131,9 @@ def _declare_flags(parser: argparse.ArgumentParser) -> None:
              "frames, ~20x fewer encoder positions)")
     add("--device_paste_back", action="store_true", default=False,
         help="composite predicted crops into full frames on the device "
-             "(ops/blend.py, the csrc/blend.cu kernels: rect for wav2lip, "
-             "masked for musetalk) instead of per-frame host cv2")
+             "(ops/blend.py, the csrc/blend.cu kernels: rect for wav2lip "
+             "and, with --coalesce, ultralight; masked for musetalk) instead "
+             "of per-frame host cv2")
     add("--mesh", type=str, default="",
         help="device mesh spec (multi-GPU; not ported yet)")
     add("--profile_dir", type=str, default="",

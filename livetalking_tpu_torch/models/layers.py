@@ -12,14 +12,18 @@
     folded reference tree loads into ``nn.Conv2d`` / ``nn.ConvTranspose2d``
     weights.
   - ``linear_f32``, ``layer_norm_f32`` and ``gelu_exact`` are the Whisper
-    encoder's and the SD blocks' primitives on parameter dictionaries:
-    linear weights in PyTorch's (out, in) layout, norm gamma/beta under
-    ``g``/``b``.
+    and HuBERT encoders' and the SD blocks' primitives on parameter
+    dictionaries: linear weights in PyTorch's (out, in) layout, norm
+    gamma/beta under ``g``/``b``.
+  - ``upsample2x_align_corners`` is the Ultralight U-Net's bilinear
+    upsampler as the reference computes it: one interpolation product per
+    axis, each rounded to the compute dtype.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Optional, Tuple
 
@@ -96,6 +100,39 @@ class ConvLayer(nn.Module):
             raise ValueError(f"{self.spec}: weight {w.shape} != {tuple(self.conv.weight.shape)}")
         self.conv.weight.copy_(torch.from_numpy(np.array(w, np.float32)))
         self.conv.bias.copy_(torch.from_numpy(np.array(b, np.float32)))
+
+
+@functools.lru_cache(maxsize=None)
+def _interp_matrix(n_in: int, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """(2 n_in, n_in) align-corners interpolation weights, in ``dtype``."""
+    n_out = 2 * n_in
+    m = np.zeros((n_out, n_in), np.float32)
+    if n_in == 1:
+        m[:, 0] = 1.0
+    else:
+        src = np.arange(n_out) * (n_in - 1) / (n_out - 1)
+        lo = np.floor(src).astype(int)
+        hi = np.minimum(lo + 1, n_in - 1)
+        frac = (src - lo).astype(np.float32)
+        m[np.arange(n_out), lo] += 1.0 - frac
+        m[np.arange(n_out), hi] += frac
+    return torch.from_numpy(m).to(device=device, dtype=dtype)
+
+
+def upsample2x_align_corners(x: torch.Tensor) -> torch.Tensor:
+    """2x bilinear upsampling with ``align_corners=True`` on an NCHW tensor.
+
+    Two interpolation products, rows then columns, each accumulated in f32
+    and rounded to ``x.dtype`` (the weights too), as the reference does;
+    ``F.interpolate`` rounds once and so differs in bf16. Works on the
+    channels-last layout (an NCHW view of NHWC memory) and returns one."""
+    B, C, H, W = x.shape
+    mh = _interp_matrix(H, x.device, x.dtype)
+    mw = _interp_matrix(W, x.device, x.dtype)
+    t = x.permute(0, 2, 3, 1).reshape(B, H, W * C)
+    y = torch.matmul(mh, t).reshape(B * 2 * H, W, C)
+    y = torch.matmul(mw, y)
+    return y.reshape(B, 2 * H, 2 * W, C).permute(0, 3, 1, 2)
 
 
 # ---------------------------------------------------------------------------

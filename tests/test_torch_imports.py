@@ -7,9 +7,9 @@
     ``aiohttp`` at module level; in a fresh interpreter where both (and
     ``jax``) cannot be imported, every module on that path still imports.
   - ``--device cuda`` on a host without a CUDA device raises at startup,
-    and a CUDA request to the paste-back raises instead of running the
-    plain version; ``--model musetalk``'s int8 flags reach the plugin's
-    warm-up instead of raising.
+    as does an unknown ``--model``, and a CUDA request to the paste-back
+    raises instead of running the plain version; ``--model musetalk``'s
+    int8 flags reach the plugin's warm-up instead of raising.
 """
 
 import ast
@@ -87,8 +87,7 @@ def _smoke_path():
                 yield from (f"{m}.{n}" for n in names if f"{m}.{n}" in SOURCES)
 
     todo = list(targets(_imports(_tree("chip_smoke"))))
-    todo += [AVATAR_MODULES["wav2lip"], AVATAR_MODULES["musetalk"], TTS_MODULES["dummy"],
-             OUTPUT_MODULES["queue"]]
+    todo += [*AVATAR_MODULES.values(), TTS_MODULES["dummy"], OUTPUT_MODULES["queue"]]
     seen = set()
     while todo:
         parts = todo.pop().split(".")
@@ -110,7 +109,9 @@ def test_smoke_path_covers_the_serving_modules():
                 "avatars.musetalk_avatar", "audio_features.whisper_features",
                 "engine.feature_coalescer", "models.musetalk", "models.sd_unet",
                 "models.sd_vae", "models.diffusion_blocks", "models.whisper_encoder",
-                "ops.attention", "ops.conv", "ops.whisper_mel", "utils.synthetic"):
+                "ops.attention", "ops.conv", "ops.whisper_mel", "utils.synthetic",
+                "avatars.ultralight_avatar", "avatars.ernerf_avatar", "models.hubert",
+                "models.ultralight", "models.ernerf", "audio_features.hubert_features"):
         assert f"{PKG}.{mod}" in SMOKE_PATH
     assert f"{PKG}.server.routes" not in SMOKE_PATH  # the HTTP server: aiohttp's
 
@@ -153,8 +154,8 @@ def test_load_plugin_stack_checks_device_and_model(monkeypatch):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             app.load_plugin_stack(default_opt(device="cuda"))
-    with pytest.raises(ValueError, match="ROADMAP"):
-        app.load_plugin_stack(default_opt(model="ultralight", device="cpu"))
+    with pytest.raises(ValueError, match="unknown model"):
+        app.load_plugin_stack(default_opt(model="nosuchmodel", device="cpu"))
     # the int8 flags load and warm the int8 graph (never bf16 in its
     # place); the plugin's own loading is stubbed out here
     warmed = []

@@ -1,7 +1,9 @@
 """The port's CUDA paths on the card: each kernel (rect and masked
-paste-back, fused and in place, attention, the int8 3x3 conv and its bf16 twin, the fused
-GroupNorm-SiLU-quantize conv) against its plain PyTorch version, the exact
-int8 GEMM, and the scheduler's pinned device->host ring.
+paste-back, fused and in place, at S = 256 and Ultralight's 168, and in
+the Ultralight super-batch step; attention, the int8 3x3 conv and its
+bf16 twin, the fused GroupNorm-SiLU-quantize conv) against its plain
+PyTorch version, the exact int8 GEMM, and the scheduler's pinned
+device->host ring.
 
 Every test here needs a CUDA device and skips without one. The file
 imports nothing of JAX, so on a host without JAX it runs as
@@ -105,17 +107,22 @@ def test_masked_blend_kernel_matches_plain(cuda, B):
         assert torch.equal(got[b][outside], picked[b][outside])
 
 
-# paste kernel cases: (frame H, W, cycle length N, placement of the boxes)
+# paste kernel cases: (frame H, W, cycle length N, placement of the boxes,
+# crop size S); S = 168 is Ultralight's crop, whose 504-byte rows (516
+# strided) are not a multiple of 16
 PASTE_CASES = {
-    "480x640": (480, 640, 6, "inside"),
-    "479x641": (479, 641, 5, "inside"),  # H*W*3 % 16 != 0: rows off 16 bytes
-    "edges": (480, 640, 8, "edges"),     # boxes clamped at each frame edge
-    "frame_bucket": (240, 256, 3, "frame"),  # a bucket equal to the frame
-    "1080p": (1080, 1920, 6, "inside"),
+    "480x640": (480, 640, 6, "inside", S),
+    "479x641": (479, 641, 5, "inside", S),  # H*W*3 % 16 != 0: rows off 16 bytes
+    "edges": (480, 640, 8, "edges", S),     # boxes clamped at each frame edge
+    "frame_bucket": (240, 256, 3, "frame", S),  # a bucket equal to the frame
+    "1080p": (1080, 1920, 6, "inside", S),
+    "S168": (480, 640, 6, "inside", 168),
+    "S168_edges": (480, 640, 8, "edges", 168),
 }
 PASTE_RUNS = ([("480x640", B) for B in (1, 3, 16, 128)]
               + [("479x641", 3), ("479x641", 16), ("edges", 16), ("edges", 128),
-                 ("frame_bucket", 3), ("1080p", 32)])
+                 ("frame_bucket", 3), ("1080p", 32)]
+              + [("S168", B) for B in (1, 16, 128)] + [("S168_edges", 16), ("S168_edges", 128)])
 
 
 def _paste_boxes(rng, H, W, N, place, lo=150, hi=260):
@@ -155,7 +162,7 @@ def test_paste_rect_kernel_matches_plain(cuda, case, B, feather):
     entry (``paste_rect`` and the step of ``make_resize_paste_fn``, int64
     and int32 indices, a strided pred) and the in-place form on the
     gathered frames; within 1 LSB, byte-identical outside each bbox."""
-    H, W, N, place = PASTE_CASES[case]
+    H, W, N, place, S = PASTE_CASES[case]
     rng = np.random.default_rng(B * 10 + feather + H)
     boxes_np = _paste_boxes(rng, H, W, N, place)
     Ho, Wo = (H, W) if place == "frame" else blend.bucket_shape(boxes_np)
@@ -209,7 +216,7 @@ def _masked_planes(rng, H, W, N, place):
 def test_paste_masked_kernel_matches_plain(cuda, case, B):
     """Both forms of the masked kernel against the plain version, as
     above; byte-identical outside each face bbox."""
-    H, W, N, place = PASTE_CASES[case]
+    H, W, N, place, S = PASTE_CASES[case]
     rng = np.random.default_rng(B + H)
     faces, planes_np, Ho, Wo = _masked_planes(rng, H, W, N, place)
     planes = [torch.from_numpy(p).to(cuda) for p in planes_np]
@@ -296,6 +303,75 @@ def test_paste_call_launches_one_kernel(cuda):
         kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         assert len(kernels) == 1, [e.name for e in kernels]
         assert "paste_kernel" in kernels[0].name
+
+
+def _ultralight_step(cuda, n, B=16):
+    """The Ultralight super-batch step with device paste (bf16, random
+    weights, two synthetic avatars in a store on the card), its inputs, and
+    its paste geometry."""
+    from livetalking_tpu_torch.avatars import ultralight_avatar as ua
+    from livetalking_tpu_torch.models import ultralight as ul
+    from livetalking_tpu_torch.utils import synthetic
+
+    arrays = [synthetic.ultralight_avatar_arrays(n_frames=8, seed=k) for k in range(2)]
+    x1, y1, x2, y2 = arrays[0]["coords"][0]
+    boxes = np.asarray([(y1, y2, x1, x2)] * 8, np.int32)
+    Ho, Wo = blend.bucket_shape(boxes.tolist())
+    spec = {"H": H, "W": W, "Ho": Ho, "Wo": Wo}
+    store = AvatarStore(item_shape=(168, 168, 3), device=cuda)
+    for k, a in enumerate(arrays):
+        store.add(f"u{k}", a["crops"], aux={"ul_slot": np.full(8, k, np.int32),
+                                             "pb_frames": np.stack(a["frames"]),
+                                             "pb_boxes": boxes})
+    ua.reset_shared_scheduler()
+    ua._shared["stacked"] = ul.stack_params([ul.init_params(1 + k, torch.bfloat16, cuda)
+                                             for k in range(2)])
+    step = ua.make_step_factory(torch.bfloat16, store, B, spec)(n * B)
+    rng = np.random.default_rng(n)
+    idxs = torch.from_numpy((np.arange(n * B) % 16).astype(np.int32)).to(cuda)
+    audio = torch.from_numpy(rng.standard_normal((n * B, 16, 32, 32)).astype(np.float32)).to(cuda)
+    return step, store, idxs, audio, spec
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2])
+def test_ultralight_step_pastes_written_crops_with_one_kernel(cuda, n):
+    """One Ultralight super-batch step (bf16, B=16 per session): the
+    prediction written into each gathered 168 px crop as the step writes
+    it, pasted by ONE launch of kernel 1 at S = 168, within 1 LSB of the
+    plain paste of the same crops and byte-identical outside each box."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from livetalking_tpu_torch.avatars import ultralight_avatar as ua
+    from livetalking_tpu_torch.models import ultralight as ul
+
+    step, store, idxs, audio, spec = _ultralight_step(cuda, n)
+    try:
+        slots = store.aux["ul_slot"].index_select(0, idxs)[::16]
+        pred = ul.make_grouped_infer_fn(n, 16, torch.bfloat16)(
+            ua._shared["stacked"], store.buffer, idxs, slots, audio)
+        crops = store.buffer.index_select(0, idxs)
+        crops[:, 4:164, 4:164] = pred
+        want = blend.resize_paste_plain(crops, store.aux["pb_frames"], idxs,
+                                        store.aux["pb_boxes"], S=168, Ho=spec["Ho"],
+                                        Wo=spec["Wo"], H=H, W=W)
+        before = blend.blend_rect_.launches
+        got = step(None, store.buffer, idxs, audio)
+        torch.cuda.synchronize()
+        assert blend.blend_rect_.launches == before + 1
+        assert got.shape == (n * 16, H, W, 3) and got.dtype == torch.uint8
+        assert int((got.int() - want.int()).abs().max()) <= 1
+        picked = store.aux["pb_frames"].index_select(0, idxs)
+        y1, y2, x1, x2 = store.aux["pb_boxes"][0].tolist()
+        assert _outside_equal(got, picked, [(y1, y2, x1, x2)] * (n * 16))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step(None, store.buffer, idxs, audio)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        assert sum("paste_kernel" in k for k in names) == 1, names
+    finally:
+        ua.reset_shared_scheduler()
 
 
 @pytest.mark.cuda
