@@ -7,7 +7,9 @@ Drives ``livetalking_tpu_torch`` on the card with random weights from fixed
 seeds, through the entry points a server uses, at full width: Wav2Lip-256,
 MuseTalk (U-Net (320, 640, 1280, 1280), the full sd-vae-ft-mse,
 Whisper-tiny) in bf16 and in W8A8 int8, and the HuBERT-fed families
-(HuBERT-large, the Ultralight U-Net, ER-NeRF), at batch 16.
+(HuBERT-large, the Ultralight U-Net, ER-NeRF), at batch 16; then the
+speech-to-text path (Whisper-tiny, ``/api/asr``) and the avatar builds
+(S3FD, BiSeNet, PFLD, the task manager).
 
   1. device     — ``nvidia-smi`` name and power limit; compute capability 9.0.
   2. build      — every kernel under ``livetalking_tpu_torch/csrc``, one nvcc
@@ -85,7 +87,24 @@ Whisper-tiny) in bf16 and in W8A8 int8, and the HuBERT-fed families
  17. ernerf     — the render on the card against the CPU (16 px, 4
                   samples, 1 LSB); B=16 at 128 px, 32 samples (ms, peak
                   memory); one ``--model ernerf`` session.
- 18. paced      — only with ``--paced``: MuseTalk sessions whose frames are
+ 18. stt        — Whisper-tiny speech-to-text as ``/api/asr`` serves it (bf16,
+                  30 s encoder window, 128 decode steps forced by a zeroed
+                  EOT embedding): encode ms, decode ms per token and its
+                  kernel profile, the host syncs of a decode
+                  (``torch.cuda.set_sync_debug_mode``), the real-time
+                  factor on 5 s of audio; the card's ids equal the
+                  CPU's in f32 for 16 tokens; one ``/api/asr`` round trip
+                  through ``app.build_web_app()`` on a local aiohttp server.
+ 19. face_models — S3FD, BiSeNet and PFLD on the card (TF32 convolutions)
+                  against the CPU at a small size (relative L2 error, TF32
+                  on and off); S3FD on 16 frames of 480x640 (GMAC, share of
+                  the TF32 rate, the detector's whole chunk), BiSeNet at 512
+                  px for B=1 and 16, PFLD per face.
+ 20. genavatar  — a synthetic 480x640 video built into wav2lip, MuseTalk and
+                  Ultralight avatars by the port's task manager on the card
+                  (s per frame), each served in one session by its plugin;
+                  the ER-NeRF task fails naming the training item.
+ 21. paced      — only with ``--paced``: MuseTalk sessions whose frames are
                   taken at 25 fps, started 160 ms apart, with the shared
                   Whisper feature coalescer and without it (with, without,
                   without, with); speech frames/s, starved ticks, requests
@@ -133,6 +152,9 @@ FUSED_SERVED_DB = 30.0  # fused vs unfused at the served shapes (phase_musetalk_
 INT8_E2E_DB = 24.0  # tests/test_int8_quality.py's end-to-end bar
 UL_PSNR_DB = 30.0  # the bf16 Ultralight step against f32 on the same weights
 HUBERT_REL_ERR = 5e-2  # HuBERT-large features, bf16 weights against f32 (relative L2)
+# the face models on the card against the CPU (relative L2): f32 convolutions
+# differ by summation order only; TF32 rounds every conv input to 10 bits
+FACE_REL_ERR_F32, FACE_REL_ERR_TF32 = 1e-4, 1e-2
 
 S, H, W = 256, 480, 640
 BOX = (120, 360, 200, 440)  # 240x240 face box centred in a 480x640 frame
@@ -1677,6 +1699,389 @@ def phase_ernerf(torch, app, ea, ernerf, synthetic, session_manager) -> dict:
     return {"render_ms": ms, "fps": r["fps"][0]}
 
 
+class IdTokenizer:
+    """Stand-in tokenizer for random weights: ids as words, the special ids
+    (>= EOT) dropped."""
+
+    def __init__(self, eot: int):
+        self.eot = eot
+
+    def decode(self, ids, skip_special_tokens=True):
+        return " ".join(f"w{int(i)}" for i in ids if not skip_special_tokens or i < self.eot)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def count_syncs(torch, fn):
+    """(result, synchronizing CUDA calls, {file:line: count}) of one call of
+    ``fn``, as ``torch.cuda.set_sync_debug_mode`` reports them; each call
+    is placed at the innermost frame of the package that made it."""
+    import traceback
+    import warnings
+
+    sites = collections.Counter()
+
+    def record(message, *args, **kwargs):
+        if "synchronizing" in str(message):
+            frames = [f for f in traceback.extract_stack()
+                      if "livetalking_tpu_torch" in f.filename] or traceback.extract_stack()[-3:]
+            sites[f"{os.path.basename(frames[-1].filename)}:{frames[-1].lineno}"] += 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum(sites.values()), dict(sites)
+
+
+def asr_roundtrip(app, pcm: np.ndarray) -> tuple:
+    """``/api/asr`` through ``app.build_web_app()`` (the port's
+    ``setup_routes``) on a local aiohttp server: JSON config, PCM16 chunks,
+    ``is_speaking: false``; (the one reply, its ms from the last chunk)."""
+    import threading
+
+    import aiohttp
+    from aiohttp import web
+
+    port = free_port()
+    loop = asyncio.new_event_loop()
+    runner = web.AppRunner(app.build_web_app())
+    started = threading.Event()
+
+    def serve():
+        asyncio.set_event_loop(loop)
+        loop.run_until_complete(runner.setup())
+        loop.run_until_complete(web.TCPSite(runner, "127.0.0.1", port).start())
+        started.set()
+        loop.run_forever()
+
+    thread = threading.Thread(target=serve, daemon=True)
+    thread.start()
+    if not started.wait(30):
+        raise AssertionError("the aiohttp server did not start")
+
+    async def client():
+        async with aiohttp.ClientSession() as sess:
+            async with sess.ws_connect(f"http://127.0.0.1:{port}/api/asr") as ws:
+                await ws.send_str(json.dumps({"chunk_size": [5, 10, 5], "wav_name": "smoke",
+                                              "is_speaking": True, "mode": "2pass",
+                                              "itn": True}))
+                data = pcm.tobytes()
+                for i in range(0, len(data), 3200):  # 100 ms chunks
+                    await ws.send_bytes(data[i:i + 3200])
+                t0 = time.perf_counter()
+                await ws.send_str(json.dumps({"is_speaking": False}))
+                msg = await asyncio.wait_for(ws.receive(), timeout=120)
+                ms = (time.perf_counter() - t0) * 1e3
+                extra = None
+                with contextlib.suppress(asyncio.TimeoutError):
+                    extra = await asyncio.wait_for(ws.receive(), timeout=0.5)
+                if extra is not None and extra.type == aiohttp.WSMsgType.TEXT:
+                    raise AssertionError(f"a second reply: {extra.data}")
+                return json.loads(msg.data), ms
+
+    try:
+        return asyncio.run(client())
+    finally:
+        asyncio.run_coroutine_threadsafe(runner.cleanup(), loop).result(30)
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(30)
+
+
+def phase_stt(torch, app, asr_server, wd, we, textnorm) -> dict:
+    """Whisper-tiny as ``/api/asr`` serves it, bf16: the encoder on a 30 s
+    window, the decoder at d_model 384, 4 layers, vocabulary 51,865, a
+    4-token prompt and ``max_new`` = 128 (EOT's embedding row zeroed, so
+    its logit is 0 and random weights run all 128 steps). Encode ms,
+    decode ms per token and for 128 with its kernel profile, the host
+    syncs a decode makes, the real-time factor of one pass on 5 s of
+    audio; the card's ids equal to the CPU's in f32 (TF32 off) for 16
+    tokens; two ``/api/asr`` round trips with the backend injected and a
+    stand-in tokenizer."""
+    cfg, max_new = wd.TINY_DECODER, 128
+    rng = np.random.default_rng(12)
+    t = np.arange(5 * 16000) / 16000
+    audio = (0.3 * np.sin(2 * np.pi * 220 * t) * (1 + np.sin(2 * np.pi * 3 * t))
+             + 0.02 * rng.standard_normal(t.size)).astype(np.float32)
+    tok = IdTokenizer(cfg.eot)
+
+    # the card against the CPU, f32, TF32 off, 16 tokens; the seeded inits
+    # draw on the host, so both devices hold the same weights
+    ids = {}
+    torch.backends.cudnn.allow_tf32 = False
+    for dev in ("cpu", "cuda"):
+        s = asr_server.WhisperTorchSTT(we.init_params(0, we.TINY, torch.float32, dev),
+                                       wd.init_params(1, cfg, torch.float32, dev), tok,
+                                       max_new=16, dtype=torch.float32, device=dev)
+        enc = s.encode(audio)
+        prompt = torch.tensor([[cfg.sot, s.detect_language(enc), cfg.task_transcribe,
+                                cfg.no_timestamps]], device=dev)
+        ids[dev] = s.decode(enc, prompt)[0].cpu()
+    torch.backends.cudnn.allow_tf32 = True
+    if not torch.equal(ids["cpu"], ids["cuda"]):
+        raise AssertionError(f"STT ids on the card {ids['cuda'].tolist()} differ from the CPU's "
+                             f"{ids['cpu'].tolist()}")
+
+    enc_p = we.init_params(0, we.TINY, torch.bfloat16, "cuda")
+    dec_p = wd.init_params(1, cfg, torch.bfloat16, "cuda")
+    dec_p["tok_emb"][cfg.eot] = 0
+    stt = asr_server.WhisperTorchSTT(enc_p, dec_p, tok, max_new=max_new, device="cuda")
+    enc = stt.encode(audio)
+    if tuple(enc.shape) != (1, 1500, 384) or not bool(torch.isfinite(enc).all()):
+        raise AssertionError(f"encoder states {tuple(enc.shape)}")
+    enc_ms = cuda_ms(lambda: stt.encode(audio), warmup=3, iters=20)
+    lang_ms = cuda_ms(lambda: stt.detect_language(enc), warmup=3, iters=20)
+    prompt = torch.tensor([[cfg.sot, cfg.lang_en, cfg.task_transcribe, cfg.no_timestamps]],
+                          device="cuda")
+    (out, n_valid), syncs, sync_sites = count_syncs(torch, lambda: stt.decode(enc, prompt))
+    n_valid = int(n_valid[0])
+    if n_valid != max_new or not bool(((out < cfg.eot) | (out == cfg.eot)).all()):
+        raise AssertionError(f"decode: {n_valid} of {max_new} tokens valid, ids "
+                             f"{out[0, :8].tolist()}...")
+    dec_ms = cuda_ms(lambda: stt.decode(enc, prompt), warmup=2, iters=10)
+    # the profile of a 16-token decode (the profiler's cost grows with the
+    # 300-odd launches a token): kernel time and launches a token
+    short = wd.make_greedy_decode(dec_p, cfg, max_new=16)
+    profile_step(torch, lambda: short(enc, prompt), steps=1,
+                 step_ms=cuda_ms(lambda: short(enc, prompt), warmup=1, iters=5),
+                 tag="stt_decode16_profile")
+    rtf = (enc_ms + lang_ms + dec_ms) / 1e3 / (audio.size / 16000)
+    t0 = time.perf_counter()
+    text = stt.transcribe(audio, 16000)
+    transcribe_ms = (time.perf_counter() - t0) * 1e3
+
+    asr_server.set_stt_backend(stt)
+    try:
+        pcm = (np.clip(audio, -1, 1) * 32767).astype(np.int16)
+        # the first request in a fresh server also makes the executor
+        # thread's cuBLAS/cuDNN handles
+        (reply, rt_ms), (reply2, rt2_ms) = asr_roundtrip(app, pcm), asr_roundtrip(app, pcm)
+    finally:
+        asr_server.set_stt_backend(None)
+    want = textnorm.postprocess(stt.transcribe(pcm.astype(np.float32) / 32768.0, 16000), itn=True)
+    if (set(reply) != {"text", "mode", "is_final", "timestamp"} or reply["is_final"] is not True
+            or reply["mode"] != "2pass-offline" or reply["text"] != want or reply2 != reply):
+        raise AssertionError(f"/api/asr replies {reply!r}, {reply2!r}; want text {want!r}")
+    log("stt", model="whisper-tiny", dtype="bfloat16", window_s=30, audio_s=audio.size / 16000,
+        encode_ms=f"{enc_ms:.3f}", detect_language_ms=f"{lang_ms:.3f}", max_new=max_new,
+        decode_ms=f"{dec_ms:.3f}", decode_ms_per_token=f"{dec_ms / max_new:.4f}",
+        host_syncs_per_decode=syncs, host_syncs_per_token=f"{syncs / max_new:.4f}",
+        sync_sites=json.dumps(sync_sites),
+        rtf_one_pass=f"{rtf:.5f}", transcribe_ms=f"{transcribe_ms:.1f}",
+        transcript_words=len(text.split()), card_vs_cpu_f32_ids="equal",
+        asr_roundtrip_ms=f"{rt_ms:.1f}", asr_roundtrip_again_ms=f"{rt2_ms:.1f}",
+        asr_reply_chars=len(reply["text"]))
+    del stt, enc_p, dec_p
+    torch.cuda.empty_cache()
+    return {"encode_ms": enc_ms, "decode_ms": dec_ms, "rtf": rtf, "roundtrip_ms": rt_ms}
+
+
+def rel_err(torch, got, want) -> float:
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def phase_face_models(torch, s3fd, bisenet, pfld, peak_tf32: float) -> dict:
+    """The avatar build's face models on the card, as the builds run them:
+    f32 weights and activations, cuDNN's default TF32 convolutions. Each
+    against the same module on the CPU at a small size: relative L2 error
+    at most ``FACE_REL_ERR_TF32`` with TF32 and ``FACE_REL_ERR_F32`` with
+    it off. S3FD: the VGG16 tower and decode on 16 frames of 480x640
+    (padded to 512x640), its GMAC and share of the TF32 rate, and the
+    detector's whole chunk (upload, pad, tower, decode, host filter and
+    NMS; the heads' biases favour the background, so random weights find
+    no face, as a trained detector finds none on most anchors); BiSeNet's
+    parse at 512 px, B=1 and 16; PFLD per face at 192 px."""
+    rng = np.random.default_rng(13)
+    errs = {}
+
+    def card_vs_cpu(name, fn, cpu_params, cuda_params, x):
+        out = {}
+        for tf32 in (False, True):
+            torch.backends.cudnn.allow_tf32 = tf32
+            out[tf32] = rel_err(torch, fn(cuda_params, x.cuda()), fn(cpu_params, x))
+        bars = {False: FACE_REL_ERR_F32, True: FACE_REL_ERR_TF32}
+        if any(out[k] > bars[k] for k in out):
+            raise AssertionError(f"{name} on the card vs the CPU: relative error {out} > {bars}")
+        errs[name] = out
+        return out
+
+    s_cpu = s3fd.init_params(0)
+    for src, l2, conf in s3fd._HEADS:  # background-biased confidence heads
+        head = s3fd._head_names(src, l2)[0]
+        s_cpu[head]["b"] = torch.tensor([4.0] * (conf - 1) + [-4.0])
+    s_gpu = s3fd.params_to(s_cpu, "cuda")
+    # the tower's and the location heads' outputs at all six scales
+    frames = rng.integers(0, 256, (2, 3, 128, 128)).astype(np.float32) - 117.0
+    card_vs_cpu("s3fd", lambda p, x: torch.cat([r.flatten() for _, r in s3fd.apply(p, x)]),
+                s_cpu, s_gpu, torch.from_numpy(frames))
+    b_cpu = bisenet.init_params(0)
+    b_gpu = bisenet.params_to(b_cpu, "cuda")
+    x = torch.from_numpy(rng.standard_normal((1, 3, 64, 64)).astype(np.float32))
+    card_vs_cpu("bisenet", bisenet.apply, b_cpu, b_gpu, x)
+    p_cpu = pfld.init_params(0)
+    mean = np.tile(np.asarray([0.5, 0.5], np.float32), pfld.N_LANDMARKS)
+    lk = pfld.PFLDLandmarker(p_cpu, mean, device="cuda")
+    x = torch.from_numpy(rng.random((2, 3, 192, 192)).astype(np.float32))
+    card_vs_cpu("pfld", pfld.apply, p_cpu, lk.params, x)
+    torch.backends.cudnn.allow_tf32 = True
+
+    # S3FD at full width: 16 frames of 480x640
+    video = np.stack(synthetic_frames(16))
+    det = s3fd.S3FDDetector(s_gpu, max_batch=16, device="cuda")
+    Hp, Wp = -(-H // 128) * 128, -(-W // 128) * 128
+    imgs = torch.zeros((16, Hp, Wp, 3), device="cuda")
+    imgs[:, :H, :W] = torch.from_numpy(video).cuda()
+    cand = s3fd.detect(s_gpu, imgs)
+    # strides 4-16 exact; fc6 (3x3, padding 3) grows the /32 map by 4, then
+    # two stride-2 convs round up
+    sizes, (h, w) = [(Hp // s, Wp // s) for s in (4, 8, 16)], (Hp // 32 + 4, Wp // 32 + 4)
+    for _ in range(3):
+        sizes.append((h, w))
+        h, w = -(-h // 2), -(-w // 2)
+    anchors = sum(a * b for a, b in sizes)
+    if tuple(cand.shape) != (16, anchors, 5) or not bool(torch.isfinite(cand).all()):
+        raise AssertionError(f"s3fd candidates {tuple(cand.shape)}")
+    s_ms = cuda_ms(lambda: s3fd.detect(s_gpu, imgs), warmup=3, iters=10)
+    macs, _ = conv_work(torch, lambda: s3fd.detect(s_gpu, imgs))
+    dets = det.detect_batch(video)
+    t0 = time.perf_counter()
+    det.detect_batch(video)
+    chunk_ms = (time.perf_counter() - t0) * 1e3
+    if len(dets) != 16 or any(d.shape[1] != 5 for d in dets):
+        raise AssertionError(f"s3fd detections {[d.shape for d in dets]}")
+    s_bound = 2 * macs / peak_tf32 * 1e3
+
+    parse = bisenet.make_parse_fn(512)
+    faces = torch.from_numpy(rng.integers(0, 256, (16, 512, 512, 3), dtype=np.uint8)).cuda()
+    cm = parse(b_gpu, faces)
+    if tuple(cm.shape) != (16, 512, 512) or int(cm.min()) < 0 or int(cm.max()) >= 19:
+        raise AssertionError(f"bisenet class map {tuple(cm.shape)}")
+    b_ms = {B: cuda_ms(lambda: parse(b_gpu, faces[:B]), warmup=3, iters=20) for B in (1, 16)}
+    b_macs, _ = conv_work(torch, lambda: parse(b_gpu, faces))
+
+    inp = torch.from_numpy(rng.random((1, 3, 192, 192)).astype(np.float32)).cuda()
+    p_ms = cuda_ms(lambda: pfld.apply(lk.params, inp), warmup=5, iters=40)
+    frame = video[0]
+    lm = lk.landmarks(frame, (200, 120, 440, 360))
+    if lm.shape != (pfld.N_LANDMARKS, 2) or not (np.abs(lm - (320, 240)).max() < 200):
+        raise AssertionError(f"pfld landmarks {lm.shape}, spread {np.abs(lm - (320, 240)).max()}")
+    t0 = time.perf_counter()
+    for _ in range(20):
+        lk.landmarks(frame, (200, 120, 440, 360))
+    lm_ms = (time.perf_counter() - t0) / 20 * 1e3
+    log("face_models", tf32=True,
+        **{f"{k}_rel_err_vs_cpu": f"f32 {v[False]:.2e} tf32 {v[True]:.2e}"
+           for k, v in errs.items()},
+        bars=f"f32 {FACE_REL_ERR_F32} tf32 {FACE_REL_ERR_TF32}")
+    log("face_models", model="s3fd", B=16, frame=f"{H}x{W}", padded=f"{Hp}x{Wp}",
+        tower_decode_ms=f"{s_ms:.3f}", frames_per_s=f"{16 / s_ms * 1e3:.1f}",
+        GMAC=f"{macs / 1e9:.1f}", GFLOP=f"{2 * macs / 1e9:.1f}",
+        tf32_bound_ms=f"{s_bound:.3f}", share_of_tf32_rate=f"{s_bound / s_ms:.3f}",
+        detector_chunk_ms=f"{chunk_ms:.1f}", detections=sum(len(d) for d in dets))
+    log("face_models", model="bisenet", size=512, B1_ms=f"{b_ms[1]:.3f}",
+        B16_ms=f"{b_ms[16]:.3f}", B16_faces_per_s=f"{16 / b_ms[16] * 1e3:.1f}",
+        B16_GFLOP=f"{2 * b_macs / 1e9:.1f}",
+        B16_share_of_tf32_rate=f"{2 * b_macs / peak_tf32 * 1e3 / b_ms[16]:.3f}")
+    log("face_models", model="pfld", size=192, B=1, forward_ms=f"{p_ms:.3f}",
+        landmarks_per_face_ms=f"{lm_ms:.3f}")
+    return {"s3fd_ms": s_ms, "bisenet_ms": b_ms, "pfld_ms": p_ms}
+
+
+def synthetic_frames(n: int, seed: int = 14) -> list:
+    """``n`` 480x640 BGR frames of the synthetic generator."""
+    from livetalking_tpu_torch.utils import synthetic
+
+    return synthetic.musetalk_avatar_arrays(n_frames=n, frame_hw=(H, W), seed=seed)["frames"]
+
+
+def phase_genavatar(torch, app, session_manager) -> dict:
+    """Avatar builds through the port's task manager on the card: a
+    synthetic 480x640 video written with ``cv2.VideoWriter``, built as
+    wav2lip, MuseTalk (the random full-width VAE, seed 0) and Ultralight
+    avatars with ``face_detector="center"`` and the geometric masks (no
+    parse weights), twice each; seconds per frame of each build; each built avatar
+    loaded by its plugin and served in one session; the ER-NeRF task
+    fails with the training item's message."""
+    import pickle
+    import tempfile
+
+    import cv2
+
+    from livetalking_tpu_torch.avatars import musetalk_avatar, ultralight_avatar, wav2lip_avatar
+    from livetalking_tpu_torch.config import default_opt
+    from livetalking_tpu_torch.genavatar.pipeline import ERNERF_BUILD_MISSING
+    from livetalking_tpu_torch.server.task_manager import TaskManager
+
+    n = 24
+    with tempfile.TemporaryDirectory(prefix="smoke_genavatar_") as tmp:
+        path = os.path.join(tmp, "input.mp4")
+        w = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 25, (W, H))
+        for f in synthetic_frames(n, seed=15):
+            w.write(f)
+        w.release()
+        data_dir, models_dir = os.path.join(tmp, "data"), os.path.join(tmp, "models")
+        tm = TaskManager(device="cuda")
+        spf = {}
+        # each family twice: the first build also pays its models' first
+        # calls (cuDNN's plan choice, the VAE's weights); the second is served
+        for aid, model in [(f"first_{m}", m) for m in ("wav2lip", "musetalk", "ultralight")] + [
+                (f"built_{m}", m) for m in ("wav2lip", "musetalk", "ultralight", "ernerf")]:
+            task = tm.add_task(aid, {"model": model, "video_path": path, "data_dir": data_dir,
+                                     "models_dir": models_dir, "face_detector": "center"})
+            deadline = time.time() + 300
+            while task.status not in ("completed", "failed") and time.time() < deadline:
+                time.sleep(0.05)
+            if model == "ernerf":
+                if task.status != "failed" or task.message != ERNERF_BUILD_MISSING:
+                    raise AssertionError(f"ernerf task {task.status}: {task.message}")
+                continue
+            if task.status != "completed":
+                raise AssertionError(f"{model} build {task.status}: {task.message}")
+            spf[aid] = (task.updated_at - task.created_at) / n
+        log("genavatar", frames=n, frame=f"{H}x{W}", detector="center",
+            **{f"{k}_s_per_frame": f"{v:.4f}" for k, v in spf.items()},
+            ernerf="fails with ROADMAP item 18")
+
+        fps = {}
+        for model, plugin in (("wav2lip", wav2lip_avatar), ("musetalk", musetalk_avatar),
+                              ("ultralight", ultralight_avatar)):
+            aid = f"built_{model}"
+            avatar = plugin.load_avatar(aid, data_dir, "cuda")
+            if len(avatar["frame_list_cycle"]) != n:
+                raise AssertionError(f"{aid}: {len(avatar['frame_list_cycle'])} frames")
+            app.global_avatars[aid] = avatar
+            with open(os.path.join(data_dir, "avatars", aid, "coords.pkl"), "rb") as f:
+                c = pickle.load(f)[0]
+            if model == "musetalk":  # the paste covers the mask's crop box
+                with open(os.path.join(data_dir, "avatars", aid, "mask_coords.pkl"), "rb") as f:
+                    c = pickle.load(f)[0]
+            box = (c[2], c[0], c[3], c[1]) if model == "wav2lip" else tuple(c)
+            opt = default_opt(model=model, transport="queue", tts="dummy", coalesce=True,
+                              device_paste_back=True, batch_size=16, device="cuda",
+                              avatar_id=aid, max_session=1, data_dir=data_dir, modelfile="")
+            app.load_plugin_stack(opt)
+            try:
+                r = drive_sessions(app, session_manager, plugin, (aid,), box, lambda: {})
+            finally:
+                plugin.reset_shared_scheduler()
+            fps[model] = r["fps"][0]
+        log("genavatar", served={k: f"{v:.1f}" for k, v in fps.items()},
+            speech_frames_each=">= 32")
+    return {"s_per_frame": spf, "fps": fps}
+
+
 def main(argv) -> int:
     import argparse
 
@@ -1699,12 +2104,14 @@ def main(argv) -> int:
     from livetalking_tpu_torch.avatars import ultralight_avatar as ua
     from livetalking_tpu_torch.avatars import wav2lip_avatar as plugin
     from livetalking_tpu_torch.config import default_opt
-    from livetalking_tpu_torch.models import ernerf, hubert
+    from livetalking_tpu_torch.models import bisenet, ernerf, hubert, pfld, s3fd
     from livetalking_tpu_torch.models import musetalk as mt
     from livetalking_tpu_torch.models import sd_unet, sd_vae
     from livetalking_tpu_torch.models import ultralight as ul
     from livetalking_tpu_torch.models import wav2lip as w2l
+    from livetalking_tpu_torch.models import whisper_decoder, whisper_encoder
     from livetalking_tpu_torch.ops import _build, attention, blend, conv
+    from livetalking_tpu_torch.server import asr_server, textnorm
     from livetalking_tpu_torch.server.session_manager import session_manager
     from livetalking_tpu_torch.utils import synthetic
 
@@ -1766,6 +2173,9 @@ def main(argv) -> int:
     ue = timed("ultralight_engine", phase_ultralight_engine, torch, app, ua, ul, blend,
                synthetic, session_manager)
     timed("ernerf", phase_ernerf, torch, app, ea, ernerf, synthetic, session_manager)
+    timed("stt", phase_stt, torch, app, asr_server, whisper_decoder, whisper_encoder, textnorm)
+    timed("face_models", phase_face_models, torch, s3fd, bisenet, pfld, peak_bf16 / 2)
+    timed("genavatar", phase_genavatar, torch, app, session_manager)
     if paced:
         timed("paced", phase_paced_ab, torch, app, muse, synthetic, sd_vae, session_manager,
               paced)

@@ -4,9 +4,11 @@ Uniform ``{"code":0,"msg":"ok","data":...}`` JSON envelope; endpoints
 ``/human`` ``/humanaudio`` ``/set_audiotype`` ``/record`` (answers with
 the error envelope until recording is ported) ``/interrupt_talk``
 ``/is_speaking`` ``/sse`` ``/api/admin/config`` ``/api/admin/sessions``
-``/api/admin/metrics`` plus static files from ``web/``. The ASR and
-avatar-task routes come with later slices. ``aiohttp`` is imported here,
-and only the web app imports this module.
+``/api/admin/metrics`` plus static files from ``web/``; the FunASR
+websocket ``/api/asr`` (server/asr_server.py) when an STT backend is
+injected or Whisper weights are present, and the avatar-build task routes
+(server/avatar_routes.py). Both run on the web app's ``opt.device``.
+``aiohttp`` is imported here, and only the web app imports this module.
 """
 
 from __future__ import annotations
@@ -283,6 +285,18 @@ def setup_routes(app: web.Application, web_root: str = "web") -> None:
     app.router.add_get("/api/admin/config", admin_config)
     app.router.add_get("/api/admin/sessions", admin_sessions)
     app.router.add_get("/sse", sse_handler)
+
+    from livetalking_tpu_torch.server import asr_server
+    from livetalking_tpu_torch.server.avatar_routes import setup_avatar_routes
+
+    device = getattr(app.get("opt"), "device", "cuda")
+    asr_server.set_stt_device(device)
+    if asr_server.is_funasr_available():
+        app.router.add_get("/api/asr", asr_server.asr_websocket_handler)
+        logger.info("[ASR] local ASR endpoint enabled at /api/asr")
+    else:
+        logger.info("[ASR] no STT backend and no Whisper weights - /api/asr disabled")
+    setup_avatar_routes(app, device)
 
     if not os.path.isdir(web_root):
         # fall back to the repo-root web/ dir regardless of cwd

@@ -4,12 +4,16 @@
     imports ``jax``, ``jaxlib`` or ``livetalking_tpu`` (read with ``ast``,
     function bodies included).
   - No module on the path ``chip_smoke.py`` drives imports ``cv2`` or
-    ``aiohttp`` at module level; in a fresh interpreter where both (and
-    ``jax``) cannot be imported, every module on that path still imports.
+    ``aiohttp`` at module level (the smoke's STT and avatar-build phases
+    import them inside their functions); in a fresh interpreter where both
+    (and ``jax``) cannot be imported, every module on that path still
+    imports.
   - ``--device cuda`` on a host without a CUDA device raises at startup,
     as does an unknown ``--model``, and a CUDA request to the paste-back
     raises instead of running the plain version; ``--model musetalk``'s
-    int8 flags reach the plugin's warm-up instead of raising.
+    int8 flags reach the plugin's warm-up instead of raising. A CUDA
+    request to the STT backend, the face models, the avatar builders or the
+    task manager raises without a card, and no task is queued.
 """
 
 import ast
@@ -111,14 +115,17 @@ def test_smoke_path_covers_the_serving_modules():
                 "models.sd_vae", "models.diffusion_blocks", "models.whisper_encoder",
                 "ops.attention", "ops.conv", "ops.whisper_mel", "utils.synthetic",
                 "avatars.ultralight_avatar", "avatars.ernerf_avatar", "models.hubert",
-                "models.ultralight", "models.ernerf", "audio_features.hubert_features"):
+                "models.ultralight", "models.ernerf", "audio_features.hubert_features",
+                "models.whisper_decoder", "server.asr_server", "server.textnorm",
+                "models.s3fd", "models.bisenet", "models.pfld", "genavatar", "genavatar.face",
+                "genavatar.pipeline", "server.task_manager"):
         assert f"{PKG}.{mod}" in SMOKE_PATH
     assert f"{PKG}.server.routes" not in SMOKE_PATH  # the HTTP server: aiohttp's
 
 
 @pytest.mark.parametrize("name", SMOKE_PATH + ["chip_smoke"])
 def test_no_module_level_cv2_or_aiohttp_on_the_smoke_path(name):
-    imports = _imports(_tree(name), module_level_only=(name != "chip_smoke"))
+    imports = _imports(_tree(name), module_level_only=True)
     bad = [m for m, _ in imports if _top(m) in HOST_ONLY]
     assert not bad, f"{name} imports {bad} at module level"
 
@@ -133,6 +140,53 @@ def test_smoke_path_imports_without_cv2_aiohttp_and_jax():
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr[-2000:]
+
+
+def test_import_guard_covers_stt_and_avatar_build_modules():
+    """The speech-to-text and avatar-build modules are among the sources
+    ``test_no_jax_and_no_reference_package`` reads."""
+    for mod in ("models.whisper_decoder", "server.asr_server", "server.textnorm",
+                "models.s3fd", "models.bisenet", "models.pfld", "genavatar",
+                "genavatar.face", "genavatar.landmarks", "genavatar.pipeline",
+                "server.task_manager", "server.avatar_routes", "server.routes"):
+        assert f"{PKG}.{mod}" in SOURCES
+
+
+def test_stt_and_avatar_build_cuda_requests_raise_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    from livetalking_tpu_torch import genavatar
+    from livetalking_tpu_torch.genavatar.face import FaceDetector
+    from livetalking_tpu_torch.models import pfld, s3fd
+    from livetalking_tpu_torch.models import whisper_decoder as wd
+    from livetalking_tpu_torch.server import asr_server
+    from livetalking_tpu_torch.server.task_manager import TaskManager
+
+    tiny = wd.WhisperDecoderConfig(vocab_size=64, d_model=8, num_layers=1, num_heads=2, ffn=8,
+                                   max_target_positions=8)
+    calls = [
+        lambda: asr_server.WhisperTorchSTT(None, wd.init_params(0, tiny, device="cpu"), None,
+                                           dec_cfg=tiny, device="cuda"),
+        lambda: asr_server.WhisperTorchSTT.from_pretrained(str(tmp_path), device="cuda"),
+        lambda: wd.init_params(0, tiny, device="cuda"),
+        lambda: s3fd.S3FDDetector(s3fd.init_params(0), device="cuda"),
+        lambda: pfld.PFLDLandmarker(pfld.init_params(0), np.zeros(220, np.float32),
+                                    device="cuda"),
+        lambda: FaceDetector("center", device="cuda"),
+        lambda: genavatar.generate_wav2lip_avatar("v.mp4", "a", str(tmp_path), device="cuda"),
+        lambda: genavatar.generate_musetalk_avatar("v.mp4", "a", str(tmp_path), device="cuda"),
+        lambda: genavatar.generate_ultralight_avatar("v.mp4", "a", str(tmp_path),
+                                                     device="cuda"),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    tm = TaskManager()
+    assert tm.device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tm.add_task("a", {"model": "wav2lip", "video_path": "v.mp4"})
+    assert tm.tasks == {}
+    assert not os.path.exists(tmp_path / "avatars")
 
 
 def test_device_cuda_without_a_card_raises_at_startup():
