@@ -102,9 +102,25 @@ speech-to-text path (Whisper-tiny, ``/api/asr``) and the avatar builds
                   px for B=1 and 16, PFLD per face.
  20. genavatar  — a synthetic 480x640 video built into wav2lip, MuseTalk and
                   Ultralight avatars by the port's task manager on the card
-                  (s per frame), each served in one session by its plugin;
-                  the ER-NeRF task fails naming the training item.
- 21. paced      — only with ``--paced``: MuseTalk sessions whose frames are
+                  (s per frame), and an ER-NeRF avatar whose field the
+                  training step fits (200 steps) on the HuBERT features of
+                  a separate audio file (its audio net must move); each
+                  served in one session by its plugin.
+ 21. train      — kernel 3's autograd Function at every training shape, f32
+                  and bf16: the card's (dq, dk, dv) against the CPU's
+                  (1e-4 and 1e-2 of max|grad|), the forward kernel's and the
+                  PyTorch backward's times at B=10; MuseTalk's full recipe
+                  at full width through ``train.cli.main`` (f32, B=10, 3
+                  steps, a random SyncNet file as the sync expert, both
+                  GANs): 20 attention launches a step, finite losses, step
+                  ms, peak memory; the U-Net self-attention gradients of
+                  the same step's forward (its latents' squared error)
+                  with the kernel against ``attention_plain`` in its place
+                  (each q, k, v, o leaf's relative L2 <= 1e-3); the step's
+                  FLOPs and busy share; 2 bf16 L1 steps; one step with the MuseTalk
+                  expert (B=16, 22 launches); one Wav2Lip full-recipe step,
+                  one Ultralight L1 step and one SyncNet step.
+ 22. paced      — only with ``--paced``: MuseTalk sessions whose frames are
                   taken at 25 fps, started 160 ms apart, with the shared
                   Whisper feature coalescer and without it (with, without,
                   without, with); speech frames/s, starved ticks, requests
@@ -132,6 +148,7 @@ import queue
 import subprocess
 import sys
 import time
+import wave
 
 import numpy as np
 
@@ -302,16 +319,33 @@ def paste_frames(torch, rng, N: int, Hf: int, Wf: int):
     return torch.randint(0, 256, (N, Hf, Wf, 3), dtype=torch.uint8, device="cuda", generator=gen)
 
 
-def check_one_kernel_per_paste(torch, call) -> None:
-    """One paste step call is one CUDA kernel (torch.profiler window)."""
+def traced(torch, run):
+    """``run()`` under torch.profiler (CPU and CUDA activity) -> the profile.
+    A window whose trace holds no CUDA event at all is the tracer's miss
+    (every window here launches kernels; it happens now and then on a
+    process's first window) and is taken again, up to three windows; a
+    third empty one raises."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    call()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        call()
+    for attempt in range(3):
         torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        if any(e.device_type == DeviceType.CUDA for e in prof.events()):
+            if attempt:
+                log("profiler", empty_windows_taken_again=attempt)
+            return prof
+    raise AssertionError("torch.profiler traced no CUDA event in three windows")
+
+
+def check_one_kernel_per_paste(torch, call) -> None:
+    """One paste step call is one CUDA kernel (torch.profiler window)."""
+    from torch.autograd import DeviceType
+
+    call()
+    prof = traced(torch, call)
     names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
     if len(names) != 1 or "paste" not in names[0]:
         raise AssertionError(f"one paste call ran the CUDA kernels {names}, want one paste kernel")
@@ -1069,21 +1103,24 @@ def phase_model(torch, w2l) -> dict:
     return {"step_ms": ms}
 
 
-def profile_step(torch, run, steps: int, step_ms: float, tag: str = "profile") -> None:
+def profile_step(torch, run, steps: int, step_ms: float, tag: str = "profile") -> dict:
     """Device time of ``steps`` runs by kernel (torch.profiler, kernel
     events only), the top entries, and the kernels' busy share of the step
-    time ``step_ms`` measured without the profiler; logged under ``tag``."""
+    time ``step_ms`` measured without the profiler; logged under ``tag`` and
+    returned."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def runs():
         for _ in range(steps):
             run()
-        torch.cuda.synchronize()
+
+    prof = traced(torch, runs)
+    # kernels only: a ``record_function`` range (``Optimizer.step#AdamW.step``)
+    # also shows on the device timeline, over the kernels it encloses
     rows = [(e.key, e.self_device_time_total / 1e3 / steps, e.count // steps)
             for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
     rows.sort(key=lambda r: -r[1])
     total = sum(r[1] for r in rows)
     log(tag, steps=steps, kernel_ms_per_step=f"{total:.3f}", step_ms=f"{step_ms:.3f}",
@@ -1092,6 +1129,7 @@ def profile_step(torch, run, steps: int, step_ms: float, tag: str = "profile") -
     for key, t, n in rows[:12]:
         log(tag, kernel=json.dumps(key[:90]), ms_per_step=f"{t:.3f}",
             share=f"{t / max(total, 1e-9):.3f}", calls_per_step=n)
+    return {"kernel_ms": total, "busy_share": total / step_ms}
 
 
 def phase_musetalk_model(torch, muse, mt, attn, wf) -> dict:
@@ -2011,17 +2049,25 @@ def phase_genavatar(torch, app, session_manager) -> dict:
     synthetic 480x640 video written with ``cv2.VideoWriter``, built as
     wav2lip, MuseTalk (the random full-width VAE, seed 0) and Ultralight
     avatars with ``face_detector="center"`` and the geometric masks (no
-    parse weights), twice each; seconds per frame of each build; each built avatar
-    loaded by its plugin and served in one session; the ER-NeRF task
-    fails with the training item's message."""
+    parse weights), twice each, and an ER-NeRF avatar (frames, boxes and a
+    triplane field fit by the training step, 200 steps at 64 px, on the
+    random HuBERT-large features of a separate speech WAV); seconds
+    per frame of each build; each built avatar loaded by its plugin and
+    served in one session."""
     import pickle
     import tempfile
 
     import cv2
 
-    from livetalking_tpu_torch.avatars import musetalk_avatar, ultralight_avatar, wav2lip_avatar
+    from livetalking_tpu_torch.avatars import (
+        ernerf_avatar,
+        musetalk_avatar,
+        ultralight_avatar,
+        wav2lip_avatar,
+    )
     from livetalking_tpu_torch.config import default_opt
-    from livetalking_tpu_torch.genavatar.pipeline import ERNERF_BUILD_MISSING
+    from livetalking_tpu_torch.genavatar.pipeline import load_frames
+    from livetalking_tpu_torch.models import ernerf
     from livetalking_tpu_torch.server.task_manager import TaskManager
 
     n = 24
@@ -2031,6 +2077,16 @@ def phase_genavatar(torch, app, session_manager) -> dict:
         for f in synthetic_frames(n, seed=15):
             w.write(f)
         w.release()
+        if len(load_frames(path, watermark=False)) != n:  # what every build decodes first
+            raise AssertionError(f"the synthetic video does not decode to {n} frames")
+        # the clip's speech for the ER-NeRF fit (cv2 writes no audio track)
+        speech = os.path.join(tmp, "speech.wav")
+        t = np.arange(int(16000 * n / 25)) / 16000.0
+        with wave.open(speech, "wb") as wf:
+            wf.setnchannels(1)
+            wf.setsampwidth(2)
+            wf.setframerate(16000)
+            wf.writeframes((0.3 * np.sin(2 * np.pi * 220 * t) * 32767).astype("<i2").tobytes())
         data_dir, models_dir = os.path.join(tmp, "data"), os.path.join(tmp, "models")
         tm = TaskManager(device="cuda")
         spf = {}
@@ -2039,24 +2095,20 @@ def phase_genavatar(torch, app, session_manager) -> dict:
         for aid, model in [(f"first_{m}", m) for m in ("wav2lip", "musetalk", "ultralight")] + [
                 (f"built_{m}", m) for m in ("wav2lip", "musetalk", "ultralight", "ernerf")]:
             task = tm.add_task(aid, {"model": model, "video_path": path, "data_dir": data_dir,
-                                     "models_dir": models_dir, "face_detector": "center"})
+                                     "models_dir": models_dir, "face_detector": "center",
+                                     "audio_path": speech})
             deadline = time.time() + 300
             while task.status not in ("completed", "failed") and time.time() < deadline:
                 time.sleep(0.05)
-            if model == "ernerf":
-                if task.status != "failed" or task.message != ERNERF_BUILD_MISSING:
-                    raise AssertionError(f"ernerf task {task.status}: {task.message}")
-                continue
             if task.status != "completed":
                 raise AssertionError(f"{model} build {task.status}: {task.message}")
             spf[aid] = (task.updated_at - task.created_at) / n
         log("genavatar", frames=n, frame=f"{H}x{W}", detector="center",
-            **{f"{k}_s_per_frame": f"{v:.4f}" for k, v in spf.items()},
-            ernerf="fails with ROADMAP item 18")
+            **{f"{k}_s_per_frame": f"{v:.4f}" for k, v in spf.items()})
 
         fps = {}
         for model, plugin in (("wav2lip", wav2lip_avatar), ("musetalk", musetalk_avatar),
-                              ("ultralight", ultralight_avatar)):
+                              ("ultralight", ultralight_avatar), ("ernerf", ernerf_avatar)):
             aid = f"built_{model}"
             avatar = plugin.load_avatar(aid, data_dir, "cuda")
             if len(avatar["frame_list_cycle"]) != n:
@@ -2067,19 +2119,325 @@ def phase_genavatar(torch, app, session_manager) -> dict:
             if model == "musetalk":  # the paste covers the mask's crop box
                 with open(os.path.join(data_dir, "avatars", aid, "mask_coords.pkl"), "rb") as f:
                     c = pickle.load(f)[0]
-            box = (c[2], c[0], c[3], c[1]) if model == "wav2lip" else tuple(c)
-            opt = default_opt(model=model, transport="queue", tts="dummy", coalesce=True,
-                              device_paste_back=True, batch_size=16, device="cuda",
-                              avatar_id=aid, max_session=1, data_dir=data_dir, modelfile="")
+            if model == "ernerf":
+                # zero conditioning leaves the audio net where the seeded
+                # init put it: the fit must have seen the HuBERT features
+                w0 = ernerf.init_params(0, audio_dim=ernerf_avatar.AUDIO_DIM)["audio1"]["w"]
+                if (avatar["nerf_params"] is None
+                        or torch.equal(avatar["nerf_params"]["audio1"]["w"].cpu(), w0)):
+                    raise AssertionError(f"{aid}: no field fit on the clip's audio")
+            box = (c[2], c[0], c[3], c[1]) if model in ("wav2lip", "ernerf") else tuple(c)
+            served = {} if model == "ernerf" else {"coalesce": True, "device_paste_back": True}
+            opt = default_opt(model=model, transport="queue", tts="dummy", batch_size=16,
+                              device="cuda", avatar_id=aid, max_session=1, data_dir=data_dir,
+                              modelfile="", **served)
             app.load_plugin_stack(opt)
             try:
                 r = drive_sessions(app, session_manager, plugin, (aid,), box, lambda: {})
             finally:
-                plugin.reset_shared_scheduler()
+                if hasattr(plugin, "reset_shared_scheduler"):
+                    plugin.reset_shared_scheduler()
             fps[model] = r["fps"][0]
         log("genavatar", served={k: f"{v:.1f}" for k, v in fps.items()},
             speech_frames_each=">= 32")
     return {"s_per_frame": spf, "fps": fps}
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+TRAIN_B = 10  # the MuseTalk full recipe's batch on the card: two 5-frame clips
+# (T, D, heads, forward launches per training step, of them with a backward):
+# the U-Net's 16 self-attention sites, and the VAE mid-block's in the three
+# encodes (no gradient) and the decode
+TRAIN_ATTN_SHAPES = [(1024, 40, 8, 5, 5), (256, 80, 8, 5, 5), (64, 160, 8, 5, 5),
+                     (16, 160, 8, 1, 1), (1024, 512, 1, 4, 1)]
+TRAIN_LAUNCHES = sum(n for *_, n, _ in TRAIN_ATTN_SHAPES)  # 20
+MT_SYNC_LAUNCHES = 2  # the MuseTalk expert's two attention blocks (musetalk_syncnet.MUSETALK)
+# the attention gradient on the card against the same Function on the CPU,
+# relative to max|grad|
+ATTN_GRAD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# U-Net self-attention gradients, kernel against attention_plain: each leaf's
+# relative L2
+GRAD_LINK_TOL = 1e-3
+
+
+def phase_train_attention(torch, attn, peak_bw: float, peak_f32: float) -> dict:
+    """Kernel 3's autograd Function at every training shape: the card's
+    (dq, dk, dv) against the same Function on CPU copies (B=2, f32 and
+    bf16); then, at the training batch in f32, the forward kernel's time and
+    the PyTorch backward's, each against its bound, summed over a step."""
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    step = {"forward_ms": 0.0, "backward_ms": 0.0, "forward_bound_ms": 0.0,
+            "backward_bound_ms": 0.0}
+    for T, D, heads, fwd_n, bwd_n in TRAIN_ATTN_SHAPES:
+        scale = D ** -0.5
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            q, k, v, do = (torch.randn((2, heads, T, D), device="cuda", generator=gen)
+                           .to(dtype) for _ in range(4))
+            grads = []
+            for dev in ("cuda", "cpu"):
+                ts = [t.to(dev, copy=True).requires_grad_(True) for t in (q, k, v)]
+                attn.attention(*ts, scale).backward(do.to(dev))
+                grads.append([t.grad.float().cpu() for t in ts])
+            for g, w in zip(*grads):
+                e = float((g - w).abs().max() / w.abs().max())
+                if not e <= ATTN_GRAD_TOL[name]:
+                    raise AssertionError(f"attention gradient {T}x{D} {name}: {e} of max|grad| "
+                                         f"> {ATTN_GRAD_TOL[name]}")
+                worst[name] = max(worst[name], e)
+        q, k, v, do = (torch.randn((TRAIN_B, heads, T, D), device="cuda", generator=gen)
+                       for _ in range(4))
+        fwd_ms = cuda_ms(lambda: attn.attention(q, k, v, scale), warmup=3, iters=20)
+        bwd_ms = cuda_ms(lambda: attn.attention_backward(q, k, v, do, scale), warmup=3, iters=20)
+        n = TRAIN_B * heads
+        fwd_bound, fwd_by = bound(4 * n * T * D * 4 / peak_bw * 1e3,
+                                  4 * n * T * T * D / peak_f32 * 1e3)
+        # backward: the scores again, dv, da, dq, dk (five T*T*D products);
+        # reads q, k, v, do and writes dq, dk, dv
+        bwd_bound, bwd_by = bound(7 * n * T * D * 4 / peak_bw * 1e3,
+                                  10 * n * T * T * D / peak_f32 * 1e3)
+        step["forward_ms"] += fwd_n * fwd_ms
+        step["backward_ms"] += bwd_n * bwd_ms
+        step["forward_bound_ms"] += fwd_n * fwd_bound
+        step["backward_bound_ms"] += bwd_n * bwd_bound
+        log("train_attention", shape=f"{TRAIN_B}x{heads}x{T}x{D}", dtype="float32",
+            forward_ms=f"{fwd_ms:.4f}", forward_bound_ms=f"{fwd_bound:.5f}", forward_by=fwd_by,
+            backward_ms=f"{bwd_ms:.4f}", backward_bound_ms=f"{bwd_bound:.5f}",
+            backward_by=bwd_by, per_step=f"{fwd_n} forward, {bwd_n} backward")
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    log("train_attention", per_training_step=f"{TRAIN_LAUNCHES} forward launches",
+        **{k: f"{v:.4f}" for k, v in step.items()},
+        grad_err_f32=f"{worst['float32']:.2e}", grad_err_bf16=f"{worst['bfloat16']:.2e}")
+    return step
+
+
+def _cli_run(torch, cli, attn, args: list, tag: str) -> dict:
+    """``train.cli.main(args)`` on the card with every kernel count at 0 just
+    before; per step its metrics, its wall time (each step ends on the host
+    with its metrics) and its attention launches; the peak device memory."""
+    marks = []
+
+    def on_step(i, m):
+        marks.append((time.perf_counter(), attn.attention.launches, m))
+
+    torch.cuda.reset_peak_memory_stats()
+    attn.attention.launches = 0
+    t0 = time.perf_counter()
+    cli.main(args + ["--device", "cuda", "--log_every", "0"], on_step=on_step)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    starts = [t0] + [t for t, _, _ in marks[:-1]]
+    step_s = [t - s for (t, _, _), s in zip(marks, starts)]
+    launches = [n - p for (_, n, _), p in zip(marks, [0] + [n for _, n, _ in marks[:-1]])]
+    for _, _, m in marks:
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"{tag}: a loss is not finite: {m}")
+    # the first step also pays the model loads and the data windows
+    steady = step_s[1:] or step_s
+    r = {"step_ms": 1e3 * float(np.median(steady)), "peak_gb": peak_gb, "launches": launches,
+         "metrics": marks[-1][2], "steps": len(marks)}
+    log("train", run=tag, steps=len(marks), step_ms=f"{r['step_ms']:.1f}",
+        first_step_s=f"{step_s[0]:.1f}", peak_memory_GB=f"{peak_gb:.2f}",
+        attention_launches_per_step=launches,
+        **{k: f"{v:.4f}" for k, v in r["metrics"].items()})
+    return r
+
+
+def _unet_self_attention_leaves(unet) -> list:
+    """(name, tensor) of the q/k/v/o weights of every U-Net self-attention."""
+    blocks = [("mid", unet["mid"]["attn"])]
+    for side in ("down", "up"):
+        for i, blk in enumerate(unet[side]):
+            blocks += [(f"{side}{i}.{j}", t) for j, t in enumerate(blk.get("attentions", []))]
+    return [(f"{n}.{w}", tr["block"]["attn1"][w]["w"]) for n, tr in blocks for w in "qkvo"]
+
+
+def phase_train(torch, attn, peak_bw: float, peak_f32: float, peak_tf32: float) -> dict:
+    """Training on the card: the attention gradient, the MuseTalk full
+    recipe at full width through ``train.cli.main`` (f32, B=10, 3 steps, the
+    sync expert from a random SyncNet file, both GANs) with 20 attention
+    launches a step; the U-Net self-attention gradients of the same step's
+    forward (its latents' squared error) with the kernel against
+    ``attention_plain`` in its place (each leaf's relative L2; f32
+    deterministic convolutions);
+    the step's FLOPs, busy share and peak memory; 2 bf16 L1 steps; one step with
+    the MuseTalk expert (B=16, 22 launches); one Wav2Lip full-recipe step
+    at 256 px, one Ultralight L1 step at 160 px and one SyncNet step."""
+    import tempfile
+    from types import SimpleNamespace
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from livetalking_tpu_torch.avatars import musetalk_avatar
+    from livetalking_tpu_torch.models import diffusion_blocks as db
+    from livetalking_tpu_torch.models import musetalk_syncnet, syncnet
+    from livetalking_tpu_torch.models.musetalk import positional_encoding_table
+    from livetalking_tpu_torch.train import cli, syncnet_train
+    from livetalking_tpu_torch.train import data as td
+    from livetalking_tpu_torch.train import musetalk_train as mtt
+    from livetalking_tpu_torch.utils.checkpoint import save_params
+    from livetalking_tpu_torch.utils.tree import to_torch_tree
+
+    ta = phase_train_attention(torch, attn, peak_bw, peak_f32)
+    out = {"attention": ta}
+    with tempfile.TemporaryDirectory(prefix="smoke_train_") as tmp:
+        sync_pkl = os.path.join(tmp, "syncnet.pkl")
+        save_params(sync_pkl, syncnet.init_params(2, 256))
+        base = ["--family", "musetalk", "--size", "full", "--synthetic", "40",
+                "--models_dir", os.path.join(tmp, "models"), "--lr", "1e-5"]
+        full = _cli_run(torch, cli, attn, base + [
+            "--dtype", "float32", "--recipe", "full", "--batch_size", str(TRAIN_B), "--steps",
+            "3", "--sync_init", sync_pkl], "musetalk_f32_full")
+        if full["launches"] != [TRAIN_LAUNCHES] * 3:
+            raise AssertionError(f"attention launches per step {full['launches']}, want "
+                                 f"{TRAIN_LAUNCHES} each")
+        if not {"sync", "gan", "mouth_gan", "face_disc", "mouth_disc"} <= set(full["metrics"]):
+            raise AssertionError(f"full recipe metrics {sorted(full['metrics'])}")
+        out["musetalk_full"] = full
+        torch.cuda.empty_cache()
+
+        # the same step through the API: the gradient reaches the U-Net's
+        # self-attention weights through the kernel's backward
+        opt = SimpleNamespace(models_dir=os.path.join(tmp, "models"), dtype="float32",
+                              device="cuda", musetalk_size="full")
+        model = musetalk_avatar.load_model(opt)
+        weights = mtt.LossWeights(sync=0.1, gan=0.05, mouth_gan=0.05)
+        txs, step = mtt.make_train_step(model["unet_cfg"], weights, lr=1e-5, max_steps=3)
+        state = mtt.init_train_state(1, model["unet_cfg"], txs, weights,
+                                     unet_params=model["unet_params"], device="cuda")
+        sync_p = syncnet.init_params(2, 256, device="cuda")
+        rng = np.random.RandomState(0)
+        faces = rng.randint(0, 255, (40, 256, 256, 3), dtype=np.uint8)
+        t = np.arange(int(16000 * 40 / 25.0)) / 16000.0
+        audio = (0.3 * np.sin(2 * np.pi * 220 * t)).astype(np.float32)
+        feats = td.whisper_windows(audio, model["whisper_params"], model["whisper_cfg"])
+        batch = to_torch_tree(next(td.clip_batches("musetalk", faces, feats, TRAIN_B, rng,
+                                                   clip_len=5, audio=audio)), "cuda")
+        names, leaves = zip(*_unet_self_attention_leaves(state.unet))
+
+        pe = torch.as_tensor(positional_encoding_table(50, model["unet_cfg"].cross_dim),
+                             device="cuda")
+
+        def link_grads():
+            # the step's forward with a smooth loss: the recipe's L1 terms
+            # are signs (and the decode clamps), so a 1e-6 change of the
+            # prediction flips a few of its 2 M pixels and moves every
+            # gradient by ~2e-3 whatever the attention does
+            pred_lat, _, gt_lat = mtt.forward(state.unet, model["vae_params"],
+                                              model["unet_cfg"], pe, batch["gt"], batch["ref"],
+                                              batch["audio"])
+            return torch.autograd.grad(((pred_lat - gt_lat) ** 2).mean(), leaves)
+
+        # TF32 convolutions would round the two runs' inputs apart at 10 bits,
+        # and cuDNN's nondeterministic backward would add noise: the check
+        # runs its convolutions in f32, deterministically
+        tf32, det = torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic
+        torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = False, True
+        attn.attention.launches = 0
+        kernel = db.attention_kernel
+        try:
+            with_kernel = link_grads()
+            kernel_launches = attn.attention.launches
+            db.attention_kernel = attn.attention_plain
+            plain = link_grads()
+        finally:
+            db.attention_kernel = kernel
+            torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = tf32, det
+        if kernel_launches != TRAIN_LAUNCHES or attn.attention.launches != kernel_launches:
+            raise AssertionError(f"link check launches: {kernel_launches} with the kernel, "
+                                 f"{attn.attention.launches - kernel_launches} with plain")
+        # each leaf (a site's q, k, v or o weight) on its own; the per-site
+        # relative L2 is logged beside it
+        errs = [float((a - b).norm() / b.norm()) for a, b in zip(with_kernel, plain)]
+        sites = {}
+        for n, a, b in zip(names, with_kernel, plain):
+            site = sites.setdefault(n.rsplit(".", 1)[0], [0.0, 0.0])
+            site[0] += float((a - b).norm()) ** 2
+            site[1] += float(b.norm()) ** 2
+        site_err = {k: float(np.sqrt(d / w)) for k, (d, w) in sites.items()}
+        worst = int(np.argmax(errs))
+        if not errs[worst] <= GRAD_LINK_TOL or min(float(b.norm()) for b in plain) == 0.0:
+            raise AssertionError(f"U-Net self-attention gradient of {names[worst]}: kernel vs "
+                                 f"plain {errs[worst]} relative L2 > {GRAD_LINK_TOL}")
+        order = np.argsort(errs)[::-1][:4]
+        log("train", check="unet_self_attention_grads_kernel_vs_plain", leaves=len(errs),
+            leaf_rel_l2_worst=[(names[i], f"{errs[i]:.2e}") for i in order],
+            leaf_rel_l2_median=f"{float(np.median(errs)):.2e}",
+            site_rel_l2_worst=f"{max(site_err.values()):.2e}", tol=GRAD_LINK_TOL)
+        del with_kernel, plain
+
+        def one_step():
+            step(state, model["vae_params"], sync_p, batch)
+
+        one_step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            one_step()
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / 2 * 1e3
+        prof = profile_step(torch, one_step, 1, step_ms, "train_profile")
+        with FlopCounterMode(display=False) as fc:
+            one_step()
+        # the forward kernel is opaque to the counter: 4*T*T*D per (batch, head)
+        attn_fwd = sum(n * 4 * TRAIN_B * h * T * T * D for T, D, h, n, _ in TRAIN_ATTN_SHAPES)
+        flops = fc.get_total_flops() + attn_fwd
+        log("train", run="musetalk_f32_full_api", step_ms=f"{step_ms:.1f}",
+            GFLOP_per_step=f"{flops / 1e9:.1f}",
+            f32_bound_ms=f"{flops / peak_f32 * 1e3:.1f}",
+            tf32_bound_ms=f"{flops / peak_tf32 * 1e3:.1f}",
+            share_of_tf32_rate=f"{flops / peak_tf32 * 1e3 / step_ms:.3f}",
+            device_busy_share=f"{prof['busy_share']:.3f}")
+        out.update(link_err=max(errs), step_flops=flops, api_step_ms=step_ms,
+                   busy_share=prof["busy_share"])
+        del state, model, batch, step, txs, sync_p
+        torch.cuda.empty_cache()
+
+        out["musetalk_bf16_l1"] = _cli_run(torch, cli, attn, base + [
+            "--dtype", "bfloat16", "--recipe", "l1", "--batch_size", str(TRAIN_B), "--steps",
+            "2"], "musetalk_bf16_l1")
+        torch.cuda.empty_cache()
+        mt_pkl = os.path.join(tmp, "musetalk_syncnet.pkl")
+        save_params(mt_pkl, musetalk_syncnet.init_params(0))
+        mts = _cli_run(torch, cli, attn, base + [
+            "--dtype", "float32", "--recipe", "full", "--sync_backend", "musetalk",
+            "--batch_size", "16", "--steps", "2", "--sync_init", mt_pkl], "musetalk_mt_sync")
+        if mts["launches"] != [TRAIN_LAUNCHES + MT_SYNC_LAUNCHES] * 2:
+            raise AssertionError(f"attention launches with the MuseTalk expert "
+                                 f"{mts['launches']}")
+        out["musetalk_mt_sync"] = mts
+        torch.cuda.empty_cache()
+
+        out["wav2lip_full"] = _cli_run(torch, cli, attn, [
+            "--family", "wav2lip", "--recipe", "full", "--batch_size", "5", "--steps", "2",
+            "--synthetic", "20", "--models_dir", os.path.join(tmp, "models")], "wav2lip_full")
+        out["ultralight_l1"] = _cli_run(torch, cli, attn, [
+            "--family", "ultralight", "--recipe", "l1", "--batch_size", "8", "--steps", "2",
+            "--synthetic", "20", "--size", "full", "--models_dir", os.path.join(tmp, "models")],
+            "ultralight_l1")
+        torch.cuda.empty_cache()
+
+    sp = syncnet.init_params(3, 256, device="cuda")
+    tx, sstep = syncnet_train.make_train_step(1e-4)
+    sopt = tx.init(sp)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    faces = torch.rand((16, 128, 256, 15), device="cuda", generator=g)
+    mels = torch.randn((16, 80, 16, 1), device="cuda", generator=g)
+    labels = (torch.arange(16, device="cuda") % 2).float()
+    sstep(sp, sopt, faces, mels, labels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = float(sstep(sp, sopt, faces, mels, labels)[2])  # on the host: the step is done
+    sync_ms = (time.perf_counter() - t0) * 1e3
+    if not np.isfinite(loss):
+        raise AssertionError(f"syncnet step: loss {loss}")
+    log("train", run="syncnet", B=16, img=256, step_ms=f"{sync_ms:.1f}", loss=f"{loss:.4f}")
+    out["syncnet_step_ms"] = sync_ms
+    return out
 
 
 def main(argv) -> int:
@@ -2176,6 +2534,8 @@ def main(argv) -> int:
     timed("stt", phase_stt, torch, app, asr_server, whisper_decoder, whisper_encoder, textnorm)
     timed("face_models", phase_face_models, torch, s3fd, bisenet, pfld, peak_bf16 / 2)
     timed("genavatar", phase_genavatar, torch, app, session_manager)
+    torch.cuda.empty_cache()
+    tr = timed("train", phase_train, torch, attention, peak_bw, peak_f32, peak_bf16 / 2)
     if paced:
         timed("paced", phase_paced_ab, torch, app, muse, synthetic, sd_vae, session_manager,
               paced)
@@ -2207,8 +2567,13 @@ def main(argv) -> int:
          "s168_bound_ms": s168["paste_bound_ms"], "s168_bound_by": s168["paste_bound_by"]},
         row("blend_mask", src + "blend.cu", "livetalking_tpu/ops/pallas_blend.py:141",
             me["blend_mask"], bm["max_abs_err"], paste_row(bm["rows"][(H, W, 128, 400)]), None),
-        row("attention", src + "attention.cu", "livetalking_tpu/ops/pallas_attention.py:79",
-            me["attention"], at["max_abs_err"], at["step"], at["step"]["library_ms"]),
+        {**row("attention", src + "attention.cu", "livetalking_tpu/ops/pallas_attention.py:79",
+               me["attention"], at["max_abs_err"], at["step"], at["step"]["library_ms"]),
+         # the training step: forward launches of the f32 full-recipe run
+         # (3 steps) and the PyTorch backward's time per step (B=10, f32)
+         "train_launches": sum(tr["musetalk_full"]["launches"]),
+         "backward_ms": tr["attention"]["backward_ms"],
+         "train_forward_ms": tr["attention"]["forward_ms"]},
         row("conv3x3_q", src + "conv.cu", "livetalking_tpu/ops/pallas_conv.py:130",
             qe["conv3x3_q"], k4["max_abs_err"], k4["step"], None),
         row("conv3x3_gnq", src + "conv.cu", "livetalking_tpu/ops/pallas_conv.py:324",

@@ -68,6 +68,14 @@ def unflatten_params(flat: Dict[str, np.ndarray], device="cpu"):
     return tree
 
 
+def save_avatar_field(params, avatar_path: str) -> str:
+    """Write the field as ``<avatar_path>/ernerf.npz`` in the JAX package's
+    flat layout, which either package loads."""
+    path = os.path.join(avatar_path, "ernerf.npz")
+    np.savez(path, **flatten_params(params))
+    return path
+
+
 def avatar_from_arrays(avatar_id: str, frames: Sequence[np.ndarray], coords: Sequence[tuple],
                        nerf_params=None, device="cuda") -> Dict[str, Any]:
     """An avatar from arrays in memory: full frames (H, W, 3) uint8 BGR and

@@ -10,11 +10,13 @@ Output directory formats are the runtime loaders' (and the reference's):
   - ultralight (reference avatars/ultralight/genavatar.py:40-95):
     full_imgs/ + face_imgs/ (168 px) + coords.pkl (x1, y1, x2, y2)
     [+ per-avatar ultralight.pth supplied by training]
+  - ernerf (the JAX package's own format): full_imgs/ + coords.pkl
+    (y1, y2, x1, x2) + ernerf.npz, a triplane field fit to the clip by
+    ``models/ernerf.py::make_train_step``
 
-Every builder runs its models (S3FD, PFLD, BiSeNet, the VAE encoder) on
-``device``, the card unless the caller asks for the CPU. The ER-NeRF build
-fits a field with the training step, which the port does not have yet
-(ROADMAP item 18). ``cv2`` is imported where it is used.
+Every builder runs its models (S3FD, PFLD, BiSeNet, the VAE encoder, the
+HuBERT front-end, the field's fit) on ``device``, the card unless the
+caller asks for the CPU. ``cv2`` is imported where it is used.
 """
 
 from __future__ import annotations
@@ -31,10 +33,6 @@ from livetalking_tpu_torch.utils.device import resolve_device
 from livetalking_tpu_torch.utils.logger import logger
 
 Progress = Optional[Callable[[int, str], None]]
-
-ERNERF_BUILD_MISSING = ("the ER-NeRF avatar build fits a field with the training step, which "
-                        "the PyTorch port does not have yet (ROADMAP item 18, training)")
-
 
 def _report(progress: Progress, pct: int, msg: str) -> None:
     if progress:
@@ -310,9 +308,110 @@ def generate_ultralight_avatar(
     return avatar_dir
 
 
-def generate_ernerf_avatar(video_path: str, avatar_id: str, data_dir: str = "./data",
-                           **kwargs) -> str:
-    """The ER-NeRF build (frames, boxes and a triplane field fit to the
-    clip, livetalking_tpu/genavatar/pipeline.py:306-400) needs the field's
-    training step, which the port does not have yet: raises."""
-    raise NotImplementedError(ERNERF_BUILD_MISSING)
+def _clip_audio(video_path: str, audio_path: Optional[str]) -> Optional[np.ndarray]:
+    """16 kHz mono f32 audio for the ER-NeRF fit: ``audio_path`` (its decode
+    errors raise), else the video's own track; None when the video (or
+    frame directory) has none that decodes."""
+    import subprocess
+
+    from livetalking_tpu_torch.utils.audio import decode_audio, resample
+
+    if audio_path:
+        wav, sr = decode_audio(audio_path)
+    elif os.path.isdir(video_path):
+        return None
+    else:
+        try:
+            wav, sr = decode_audio(video_path)
+        except (RuntimeError, subprocess.CalledProcessError) as e:
+            logger.warning("ernerf: no usable audio track (%s) - zero conditioning", e)
+            return None
+    wav = np.asarray(resample(wav, sr, 16000), np.float32)
+    if wav.size == 0:
+        if audio_path:
+            raise ValueError(f"ernerf: {audio_path} holds no audio")
+        logger.warning("ernerf: empty audio track - zero conditioning")
+        return None
+    return wav
+
+
+def generate_ernerf_avatar(
+    video_path: str,
+    avatar_id: str,
+    data_dir: str = "./data",
+    size: int = 64,
+    train_steps: int = 200,
+    batch: int = 4,
+    hubert_params=None,
+    hubert_cfg=None,
+    face_detector: Optional[FaceDetector] = None,
+    progress_callback: Progress = None,
+    device="cuda",
+    audio_path: Optional[str] = None,
+) -> str:
+    """Build an ER-NeRF avatar: frames, boxes and a per-avatar triplane
+    field fit photometrically to the clip, conditioned on its audio.
+
+    The audio is ``audio_path`` when given, else the video's own track.
+    The features are the serving extractor's HuBERT windows (multiplier 2,
+    window (4, 4)), zeros when the video has no audio track to decode; the
+    fit draws its frames and its random solid backgrounds from
+    ``np.random.default_rng(0)``, as the reference does."""
+    import cv2
+    import torch
+
+    from livetalking_tpu_torch.audio_features.base import clamp_window_indices
+    from livetalking_tpu_torch.avatars.ernerf_avatar import AUDIO_DIM, save_avatar_field
+    from livetalking_tpu_torch.models import ernerf
+    from livetalking_tpu_torch.models import hubert as hub
+
+    dev = resolve_device(device)
+    avatar_dir = os.path.join(data_dir, "avatars", avatar_id)
+    detector = face_detector or FaceDetector(device=dev)
+
+    _report(progress_callback, 5, "decoding frames")
+    frames = load_frames(video_path)
+    _report(progress_callback, 20, "detecting faces")
+    boxes = detect_track(frames, detector, pads=(0, 10, 0, 0))
+    _write_frames(os.path.join(avatar_dir, "full_imgs"), frames)
+    _pickle(os.path.join(avatar_dir, "coords.pkl"),
+            [(y1, y2, x1, x2) for (x1, y1, x2, y2) in boxes])
+
+    n = len(frames)
+    _report(progress_callback, 35, "extracting audio features")
+    feats = np.zeros((n, AUDIO_DIM), np.float32)
+    wav = _clip_audio(video_path, audio_path)
+    if wav is not None:
+        cfg = hubert_cfg or hub.LARGE
+        params = hubert_params or hub.init_params(0, cfg, device=dev)
+        with torch.no_grad():
+            h = hub.apply(params, cfg, torch.from_numpy(wav)[None].to(dev))[0].float().cpu().numpy()
+        rows = clamp_window_indices(n, h.shape[0], (4, 4), start=0, multiplier=2.0)
+        win = h[rows].reshape(n, -1)[:, :AUDIO_DIM]  # narrower with the tests' tiny configs
+        feats[:, : win.shape[1]] = win
+
+    _report(progress_callback, 45, "fitting triplane field")
+    crops = np.stack([cv2.resize(f[y1:y2, x1:x2], (size, size)).astype(np.float32) / 255.0
+                      for f, (x1, y1, x2, y2) in zip(frames, boxes)])
+    params = ernerf.init_params(0, audio_dim=AUDIO_DIM, device=dev)
+    tx, step = ernerf.make_train_step(lr=2e-3, size=size, n_samples=16)
+    opt_state = tx.init(params)
+    rng = np.random.default_rng(0)
+    for it in range(train_steps):
+        sel = rng.integers(0, n, (batch,))
+        # a random solid background per sample: the field has to explain the
+        # head with alpha ~ 1 instead of leaning on one background; serving
+        # composites over the frame's own box crop
+        bg = np.broadcast_to(rng.random((batch, 1, 1, 3)).astype(np.float32),
+                             (batch, size, size, 3))
+        params, opt_state, loss = step(params, opt_state, torch.from_numpy(feats[sel]).to(dev),
+                                       torch.from_numpy(np.ascontiguousarray(bg)).to(dev),
+                                       torch.from_numpy(crops[sel]).to(dev))
+        if it % max(1, train_steps // 10) == 0:
+            _report(progress_callback, 45 + int(50 * it / train_steps),
+                    f"fit step {it}/{train_steps} loss={float(loss):.4f}")
+
+    save_avatar_field(params, avatar_dir)
+    _report(progress_callback, 100, "done")
+    logger.info("ernerf avatar %s built: %d frames, %d fit steps", avatar_id, n, train_steps)
+    return avatar_dir

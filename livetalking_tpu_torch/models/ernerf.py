@@ -11,8 +11,11 @@ f32 tensors with the reference's keys and layouts (dense weights
 
 ``render_frame_batch`` renders every frame's rays in chunks of
 ``ray_chunk`` rays across the batch, so a B=16, 128 px, 32-sample step
-(8.4 M samples) holds a few GB of intermediates, not tens. The training
-step of the reference package is not ported yet.
+(8.4 M samples) holds a few GB of intermediates, not tens; it runs
+under ``inference_mode``. ``make_train_step`` is the reference's
+photometric fit (Adam, MSE of the composited render against the target
+crops), which the avatar build runs; it renders the batch's rays in one
+differentiable pass.
 """
 
 from __future__ import annotations
@@ -187,3 +190,36 @@ def render_frame_batch(params: Params, audio_feats: torch.Tensor, bg_crops: torc
     a = alpha.reshape(B, size, size, 1)
     out = img * a + bg_crops * (1.0 - a)
     return (out * 255.0).round().clamp(0, 255).to(torch.uint8)
+
+
+def composite(params: Params, audio_feats: torch.Tensor, bg: torch.Tensor, *, size: int,
+              n_samples: int) -> torch.Tensor:
+    """Differentiable render of B frames over their backgrounds: audio_feats
+    (B, audio_dim), bg (B, size, size, 3) in [0, 1] -> (B, size, size, 3)
+    f32 in [0, 1], every ray of the batch in one pass."""
+    B = audio_feats.shape[0]
+    rays_o, rays_d = make_frame_rays(size, device=audio_feats.device)
+    lat = audio_encoder(params, audio_feats)                         # (B, A)
+    P = size * size
+    rgb, alpha = render_rays(params, rays_o.repeat(B, 1), rays_d.repeat(B, 1),
+                             lat.repeat_interleave(P, dim=0), n_samples=n_samples)
+    a = alpha.reshape(B, size, size, 1)
+    return rgb.reshape(B, size, size, 3) * a + bg * (1.0 - a)
+
+
+def make_train_step(lr: float = 1e-3, size: int = 64, n_samples: int = 32):
+    """-> (tx, step): ``step(params, opt_state, audio_feats, bg, target) ->
+    (params, opt_state, loss)``, Adam on the MSE of ``composite`` against
+    the target crops (B, size, size, 3); ``opt_state`` is ``tx.init(params)``."""
+    from livetalking_tpu_torch.train import optim
+
+    tx = optim.adam(lr)
+
+    def step(params, opt_state, audio_feats, bg, target):
+        pred = composite(params, audio_feats, bg, size=size, n_samples=n_samples)
+        loss = ((pred - target) ** 2).mean()
+        loss.backward()
+        opt_state.step()
+        return params, opt_state, loss.detach()
+
+    return tx, step

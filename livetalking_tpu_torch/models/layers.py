@@ -4,6 +4,9 @@
   - ``ConvLayer`` runs one entry: ``nn.Conv2d`` or ``nn.ConvTranspose2d``
     (cuDNN on the card), + residual, + activation, on NCHW tensors that
     are channels-last in memory when the module is.
+  - ``ConvStack`` runs a list of them on NHWC activations (the
+    training-only nets); ``load_jax_`` carries the reference's layers
+    (HWIO) over.
   - BatchNorm is folded into the conv at load time (``fold_bn``), so the
     graph is conv+bias+act only, as in the reference.
   - The reference keeps folded weights as HWIO, with transposed-conv
@@ -25,7 +28,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Any, Optional, Tuple
+from typing import Any, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -102,9 +105,36 @@ class ConvLayer(nn.Module):
         self.conv.bias.copy_(torch.from_numpy(np.array(b, np.float32)))
 
 
+class ConvStack(nn.Sequential):
+    """``ConvLayer``s in order on NHWC activations, (B, H, W, C) ->
+    (B, H', W', O): the layout the training-only nets (discriminators,
+    sync experts) take, as the reference's do."""
+
+    def __init__(self, specs: Sequence[ConvSpec]):
+        super().__init__(*(ConvLayer(s) for s in specs))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+    def init_(self, generator: torch.Generator) -> "ConvStack":
+        for layer in self:
+            layer.init_(generator)
+        return self
+
+    def load_jax_(self, layers: Sequence[Any]) -> "ConvStack":
+        """Load the reference's layer list ``[{"w": HWIO, "b"}, ...]``."""
+        for layer, p in zip(self, layers, strict=True):
+            layer.load_hwio_(np.asarray(p["w"], np.float32), np.asarray(p["b"], np.float32))
+        return self
+
+
 @functools.lru_cache(maxsize=None)
 def _interp_matrix(n_in: int, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
-    """(2 n_in, n_in) align-corners interpolation weights, in ``dtype``."""
+    """(2 n_in, n_in) align-corners interpolation weights, in ``dtype``.
+
+    Made outside inference mode even when the first call comes from a
+    serving step under ``torch.inference_mode``: the cached tensor is
+    shared with training, whose autograd cannot save an inference tensor."""
     n_out = 2 * n_in
     m = np.zeros((n_out, n_in), np.float32)
     if n_in == 1:
@@ -116,7 +146,8 @@ def _interp_matrix(n_in: int, device: torch.device, dtype: torch.dtype) -> torch
         frac = (src - lo).astype(np.float32)
         m[np.arange(n_out), lo] += 1.0 - frac
         m[np.arange(n_out), hi] += frac
-    return torch.from_numpy(m).to(device=device, dtype=dtype)
+    with torch.inference_mode(False):
+        return torch.from_numpy(m).to(device=device, dtype=dtype)
 
 
 def upsample2x_align_corners(x: torch.Tensor) -> torch.Tensor:

@@ -12,6 +12,16 @@ it runs ``attention_plain``, the same arithmetic in plain PyTorch; on CUDA
 tensors it launches the kernel (counted in ``attention.launches``) or
 raises.
 
+``attention`` is differentiable: a ``torch.autograd.Function`` whose
+forward is the kernel (or ``attention_plain`` on the CPU) and whose
+backward is the reference's custom VJP (pallas_attention.py:122-133) in
+plain PyTorch, on both devices. The reference's backward is XLA, not a
+kernel, so there is no backward kernel here either: it recomputes the f32
+scores and the unrounded f32 softmax ``a`` from the saved q, k, v, then
+``dv = aT do``, ``da = do vT``, ``ds = a (da - sum(da a))``,
+``dq = ds k s``, ``dk = dsT q s``, all in f32, each cast to its input's
+dtype.
+
 Layout (B, H, T, D) for q, k, v and the output. Numerics as the reference:
 f32 scores and softmax, probabilities rounded to v's dtype, f32 sums for
 the product with v, output in v's dtype. The reference's TPU sizing (a
@@ -28,20 +38,26 @@ import threading
 
 import torch
 
-__all__ = ["attention", "attention_plain"]
+__all__ = ["attention", "attention_plain", "attention_backward"]
 
 MAX_HEAD_DIM = 512
 _SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _acc(t: torch.Tensor) -> torch.dtype:
+    """The sums' dtype: f32 (f64 for f64 inputs, which gradcheck takes)."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     sm_scale: float) -> torch.Tensor:
     """Plain PyTorch version of the kernel: (B, H, T, D) x3 -> (B, H, T, D)."""
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
+    f = _acc(q)
+    s = torch.matmul(q.to(f), k.to(f).transpose(-1, -2)) * sm_scale
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     a = (p / p.sum(dim=-1, keepdim=True)).to(v.dtype)
-    return torch.matmul(a.float(), v.float()).to(v.dtype)
+    return torch.matmul(a.to(f), v.to(f)).to(v.dtype)
 
 
 _launch_lock = threading.Lock()
@@ -80,13 +96,8 @@ def _check_kernel_args(q, k, v) -> None:
                          f"or {B * H} batch*heads (at most 65535)")
 
 
-def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              sm_scale: float) -> torch.Tensor:
-    """Dense non-causal attention, (B, H, T, D) x3 -> (B, H, T, D).
-
-    The wrapper of ``csrc/attention.cu``. CPU tensors run
-    ``attention_plain``; CUDA tensors launch the kernel on the current
-    stream (counted in ``attention.launches``); anything else raises."""
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale: float) -> torch.Tensor:
+    """The kernel on CUDA tensors (counted), ``attention_plain`` on CPU ones."""
     if q.device.type == k.device.type == v.device.type == "cpu":
         return attention_plain(q, k, v, sm_scale)
     _check_kernel_args(q, k, v)
@@ -107,6 +118,45 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with _launch_lock:
         attention.launches += 1
     return o
+
+
+def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+                       sm_scale: float):
+    """The reference's VJP of the kernel in plain PyTorch: (dq, dk, dv)."""
+    f = _acc(q)
+    qf, kf, vf, dof = q.to(f), k.to(f), v.to(f), do.to(f)
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * sm_scale
+    a = torch.softmax(s, dim=-1)
+    dv = torch.matmul(a.transpose(-1, -2), dof)
+    da = torch.matmul(dof, vf.transpose(-1, -2))
+    ds = a * (da - (da * a).sum(dim=-1, keepdim=True))
+    dq = torch.matmul(ds, kf) * sm_scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * sm_scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _Attention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, sm_scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.sm_scale = sm_scale
+        return _forward(q, k, v, sm_scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        return (*attention_backward(q, k, v, do, ctx.sm_scale), None)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              sm_scale: float) -> torch.Tensor:
+    """Dense non-causal attention, (B, H, T, D) x3 -> (B, H, T, D).
+
+    The wrapper of ``csrc/attention.cu``. CPU tensors run
+    ``attention_plain``; CUDA tensors launch the kernel on the current
+    stream (counted in ``attention.launches``); anything else raises.
+    Differentiable on both devices through ``attention_backward``."""
+    return _Attention.apply(q, k, v, float(sm_scale))
 
 
 attention.launches = 0

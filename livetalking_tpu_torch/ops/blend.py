@@ -25,7 +25,9 @@ raises.
   already-gathered frames (plain ``_blend_rect_plain``,
   ``_blend_masked_plain``).
 
-Both forms of a kernel count their launches in ``blend_rect_.launches``
+No wrapper is differentiable: each raises when grad mode is on and an
+input requires grad (``ops.conv.refuse_grad``). Both forms of a kernel
+count their launches in ``blend_rect_.launches``
 and ``blend_masked_.launches``. ``prepare_masked_paste_data`` builds the
 masked path's per-index planes on the host; ``DevicePasteBack`` and
 ``MaskedDevicePasteBack`` are the per-avatar paths without a scheduler.
@@ -41,7 +43,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from livetalking_tpu_torch.ops.conv import _on, _stream
+from livetalking_tpu_torch.ops.conv import _on, _stream, refuse_grad
 from livetalking_tpu_torch.utils.device import resolve_device
 
 __all__ = [
@@ -187,6 +189,7 @@ def _launch(masked: bool, fused: bool, pred, src, out, idxs, planes, S: int, Ho:
 def _paste_rect(pred, frames, idxs, boxes, S: int, Ho: int, Wo: int, H: int, W: int,
                 feather: int) -> torch.Tensor:
     """``paste_rect`` after the static geometry was checked."""
+    refuse_grad("paste_rect", pred, frames)
     dev = frames.device
     if dev.type == pred.device.type == idxs.device.type == boxes.device.type == "cpu":
         return resize_paste_plain(pred, frames, idxs, boxes, S=S, Ho=Ho, Wo=Wo, H=H, W=W,
@@ -252,6 +255,7 @@ def blend_rect_(pred: torch.Tensor, out: torch.Tensor, boxes: torch.Tensor,
     tensors run ``_blend_rect_plain``; CUDA tensors launch the kernel's
     in-place form on the current stream (counted in
     ``blend_rect_.launches``); anything else raises."""
+    refuse_grad("blend_rect_", pred, out)
     if pred.device.type == out.device.type == boxes.device.type == "cpu":
         return _blend_rect_plain(pred, out, boxes, Ho=Ho, Wo=Wo, feather=feather)
     B, H, W = out.shape[:3]
@@ -371,6 +375,7 @@ def blend_masked_(pred: torch.Tensor, out: torch.Tensor, idxs: torch.Tensor,
     kernel's in-place form on the current stream (counted in
     ``blend_masked_.launches``); anything else raises."""
     args = (pred, out, idxs, origins, scalars, masks)
+    refuse_grad("blend_masked_", pred, out)
     if all(t.device.type == "cpu" for t in args):
         return _blend_masked_plain(*args, Ho=Ho, Wo=Wo)
     B, H, W = out.shape[:3]
@@ -397,6 +402,7 @@ def _paste_masked(pred, frames, idxs, origins, scalars, masks, S: int, Ho: int, 
                   H: int, W: int) -> torch.Tensor:
     """``paste_masked`` after the static geometry was checked."""
     args = (pred, frames, idxs, origins, scalars, masks)
+    refuse_grad("paste_masked", pred, frames)
     if all(t.device.type == "cpu" for t in args):
         return masked_paste_plain(*args, S=S, Ho=Ho, Wo=Wo, H=H, W=W)
     dev = frames.device

@@ -22,7 +22,10 @@ On CPU tensors each wrapper runs its plain version (``*_plain``, the same
 arithmetic in plain PyTorch); on CUDA tensors it launches the kernel,
 counted in ``<wrapper>.launches``, or raises. The int8 plain versions sum
 exactly: float64 GEMMs of the int8 values (every sum is an integer below
-2**53).
+2**53). No kernel here has a backward, as no ``pallas_call`` of the
+reference has one: every wrapper raises (``refuse_grad``) when grad mode
+is on and an input requires grad, instead of returning a result that is
+cut off from the graph.
 
 ``int8_matmul`` is the exact int8 GEMM of the int8 sites the JAX package
 leaves to plain XLA ops (1x1 shortcuts, stride-2 downsamplers, linears):
@@ -42,7 +45,7 @@ from torch.nn import functional as F
 
 __all__ = ["conv3x3_q", "conv3x3_q_plain", "conv3x3_bf16", "conv3x3_bf16_plain",
            "conv3x3_gnq", "conv3x3_gnq_plain", "conv3x3_gnq_fits", "int8_matmul",
-           "conv3x3_plan", "Conv3x3Plan", "CHANNEL_MULTIPLE", "BLOCK_M"]
+           "conv3x3_plan", "Conv3x3Plan", "CHANNEL_MULTIPLE", "BLOCK_M", "refuse_grad"]
 
 # the kernels stage the K dimension 64 bytes at a time, one 3x3 tap at a
 # time: int8 inputs need C % 64 == 0, bf16 inputs C % 32 == 0
@@ -97,6 +100,13 @@ class Conv3x3Plan(NamedTuple):
         """The stages [begin, end) of each split part, as the kernel cuts them."""
         return [(s * self.stages // self.splits, (s + 1) * self.stages // self.splits)
                 for s in range(self.splits)]
+
+
+def refuse_grad(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise if autograd would have to differentiate through kernel ``name``."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the kernel has no backward; call it under "
+                           "torch.no_grad() or on tensors that do not require grad")
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -379,6 +389,7 @@ def conv3x3_q(xq: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor, bias: tor
 
     CPU tensors run ``conv3x3_q_plain``; CUDA tensors launch the kernel of
     ``csrc/conv.cu`` (counted in ``conv3x3_q.launches``) or raise."""
+    refuse_grad("conv3x3_q", xq, wq, scale, bias, residual)
     if xq.device.type == "cpu":
         return conv3x3_q_plain(xq, wq, scale, bias, residual, out_dtype)
     return _launch_conv3x3(xq, wq, scale, bias, residual, out_dtype, conv3x3_q)
@@ -393,6 +404,7 @@ def conv3x3_bf16(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     """bf16 twin of ``conv3x3_q`` (f32 sums): y = conv(x, w) + bias
     (+ residual). CPU tensors run ``conv3x3_bf16_plain``; CUDA tensors
     launch the kernel (counted in ``conv3x3_bf16.launches``) or raise."""
+    refuse_grad("conv3x3_bf16", x, w, bias, residual)
     if x.device.type == "cpu":
         return conv3x3_bf16_plain(x, w, bias, residual, out_dtype)
     return _launch_conv3x3(x, w, None, bias, residual, out_dtype, conv3x3_bf16)
@@ -420,6 +432,7 @@ def conv3x3_gnq(x: torch.Tensor, gn_scale: Optional[torch.Tensor],
     (counted in ``conv3x3_gnq.launches``) or raise. The kernel writes
     per-tile partial moments (no atomics); they are summed here, so the
     result does not depend on the order blocks run in."""
+    refuse_grad("conv3x3_gnq", x, gn_scale, gn_shift, act_scale, wq, out_scale, bias, residual)
     if x.device.type == "cpu":
         return conv3x3_gnq_plain(x, gn_scale, gn_shift, act_scale, wq, out_scale, bias,
                                  residual, upsample=upsample)

@@ -141,7 +141,10 @@ class TaskManager:
                                            unet_checkpoint=params.get("unet_checkpoint"),
                                            models_dir=models_dir, **common)
             elif model_kind == "ernerf":
-                generate_ernerf_avatar(video_path, task.avatar_id, data_dir, **common)
+                generate_ernerf_avatar(video_path, task.avatar_id, data_dir,
+                                       size=int(params.get("size", 64)),
+                                       train_steps=int(params.get("train_steps", 200)),
+                                       audio_path=params.get("audio_path"), **common)
             else:
                 vae_params = None
                 if self.model_provider is not None:

@@ -10,8 +10,10 @@ a narrow VAE (the small channel ladder of tests/test_sd_converters.py).
 Both packages run on this host, so ``cv2`` writes both. The built
 avatars load in the port's plugins. Then the task manager (progress,
 webhook over HTTP, statuses), the ``auto`` detector's refusal, the
-ER-NeRF build's error, and the avatar routes' envelopes against the JAX
-package's routes.
+ER-NeRF build against the JAX package's (frames and ``coords.pkl`` byte
+for byte, the fitted ``ernerf.npz`` with the same keys and shapes and
+values within 1e-3 relative L2, from the same initial field), and the
+avatar routes' envelopes against the JAX package's routes.
 """
 
 import asyncio
@@ -201,19 +203,127 @@ def test_task_manager_lifecycle(video, tmp_path, webhook):
     assert dead.status == "completed", dead.message
 
 
-def test_ernerf_build_fails_with_the_training_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 18"):
-        tg.generate_ernerf_avatar("video.mp4", "nf")
+def test_ernerf_build_fails_with_the_training_item(video, tmp_path, monkeypatch):
+    """The ER-NeRF build, which raised until the training step was ported,
+    against the JAX package's: the same directory, the fitted field within
+    1e-3 relative L2 of the reference's from the same initial field (the
+    port's seeded init replaced by the reference's), and the port's
+    plugin loads it."""
+    import jax
+
+    from livetalking_tpu.models import ernerf as je
+    from livetalking_tpu_torch.avatars import ernerf_avatar as tea
+    from livetalking_tpu_torch.models import ernerf as te
+
+    kw = dict(size=32, train_steps=3, batch=2)
+    jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "port")
+    want = jg.generate_ernerf_avatar(video, "nf", jdir, face_detector=JFaceDetector("center"),
+                                     **kw)
+    init = jax.tree.map(np.asarray, je.init_params(jax.random.PRNGKey(0),
+                                                   audio_dim=tea.AUDIO_DIM))
+    monkeypatch.setattr(te, "init_params", lambda *a, device="cpu", **k:
+                        te.params_from_jax(init, device))
+    got = tg.generate_ernerf_avatar(video, "nf", tdir, face_detector=FaceDetector(
+        "center", device="cpu"), device="cpu", **kw)
+    names = _files(want)
+    assert _files(got) == names and len(names) == N_FRAMES + 2
+    for name in names:
+        if name != "ernerf.npz":
+            assert filecmp.cmp(os.path.join(got, name), os.path.join(want, name),
+                               shallow=False), name
+    with np.load(os.path.join(want, "ernerf.npz")) as w, \
+            np.load(os.path.join(got, "ernerf.npz")) as g:
+        assert sorted(w.files) == sorted(g.files)
+        for k in w.files:
+            assert g[k].shape == w[k].shape, k
+            err = np.linalg.norm(g[k] - w[k]) / max(np.linalg.norm(w[k]), 1e-12)
+            assert err <= 1e-3, (k, err)
+        assert not np.array_equal(g["planes"], init["planes"])  # the fit moved the field
+        # no audio track: zero conditioning, which leaves the audio net as it was
+        assert np.array_equal(g["audio1.w"], init["audio1"]["w"])
+    avatar = tea.load_avatar("nf", tdir, device="cpu")
+    assert avatar["nerf_params"] is not None and len(avatar["frame_list_cycle"]) == N_FRAMES
+
+
+@pytest.fixture(scope="module")
+def speech(tmp_path_factory):
+    """A 16 kHz mono 16-bit WAV as long as the video."""
+    import wave
+
+    t = np.arange(int(16000 * N_FRAMES / 25)) / 16000.0
+    x = 0.3 * np.sin(2 * np.pi * 220 * t) + 0.1 * np.sin(2 * np.pi * 523 * t)
+    path = str(tmp_path_factory.mktemp("wav") / "speech.wav")
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes((x * 32767).astype("<i2").tobytes())
+    return path
+
+
+def test_ernerf_build_with_audio_matches_jax(video, speech, tmp_path, monkeypatch):
+    """The fit conditioned on audio: the port reads a separate WAV
+    (``audio_path``), the JAX package the same file as its video's track
+    (its decoder pointed at the WAV), with tiny HuBERT weights carried
+    across. The fields agree within 1e-3 relative L2 and the audio net
+    moved, which zero conditioning cannot do; a HuBERT failure raises
+    instead of falling back to zero conditioning."""
+    import jax
+
+    from livetalking_tpu.models import ernerf as je
+    from livetalking_tpu.models import hubert as jh
+    from livetalking_tpu.utils import audio as jaudio
+    from livetalking_tpu_torch.avatars import ernerf_avatar as tea
+    from livetalking_tpu_torch.models import ernerf as te
+    from livetalking_tpu_torch.models import hubert as th
+
+    hub = dict(conv_dim=(32, 32), conv_kernel=(10, 4), conv_stride=(5, 4), hidden_size=16,
+               num_layers=1, num_heads=2, intermediate_size=32, num_conv_pos_embeddings=8,
+               num_conv_pos_embedding_groups=2)
+    jcfg, tcfg = jh.HubertConfig(**hub), th.HubertConfig(**hub)
+    jhp = jh.init_params(jax.random.PRNGKey(1), jcfg, dtype=jnp.float32)
+    thp = th.params_from_jax(jax.tree.map(np.asarray, jhp))
+    decode = jaudio.decode_audio
+    monkeypatch.setattr(jaudio, "decode_audio", lambda src: decode(speech))
+    kw = dict(size=32, train_steps=3, batch=2)
+    want = jg.generate_ernerf_avatar(video, "nf", str(tmp_path / "jax"), hubert_params=jhp,
+                                     hubert_cfg=jcfg, face_detector=JFaceDetector("center"),
+                                     **kw)
+    init = jax.tree.map(np.asarray, je.init_params(jax.random.PRNGKey(0),
+                                                   audio_dim=tea.AUDIO_DIM))
+    monkeypatch.setattr(te, "init_params", lambda *a, device="cpu", **k:
+                        te.params_from_jax(init, device))
+    port = dict(hubert_params=thp, hubert_cfg=tcfg, audio_path=speech, device="cpu",
+                face_detector=FaceDetector("center", device="cpu"), **kw)
+    got = tg.generate_ernerf_avatar(video, "nf", str(tmp_path / "port"), **port)
+    with np.load(os.path.join(want, "ernerf.npz")) as w, \
+            np.load(os.path.join(got, "ernerf.npz")) as g:
+        assert sorted(w.files) == sorted(g.files)
+        for k in w.files:
+            err = np.linalg.norm(g[k] - w[k]) / max(np.linalg.norm(w[k]), 1e-12)
+            assert err <= 1e-3, (k, err)
+        assert not np.array_equal(g["audio1.w"], init["audio1"]["w"])
+        assert not np.array_equal(w["audio1.w"], init["audio1"]["w"])
+
+    def broken(*a, **k):
+        raise RuntimeError("hubert failed")
+
+    monkeypatch.setattr(th, "apply", broken)
+    with pytest.raises(RuntimeError, match="hubert failed"):
+        tg.generate_ernerf_avatar(video, "nf2", str(tmp_path / "port"), **port)
 
 
 def test_task_manager_ernerf_and_musetalk_tasks(video, tmp_path):
-    """An ER-NeRF task fails with the item-18 message; a MuseTalk task with
-    no model provider builds with the random VAE on its device."""
+    """An ER-NeRF task builds an avatar the port's plugin loads; a MuseTalk
+    task with no model provider builds with the random VAE on its device."""
+    from livetalking_tpu_torch.avatars import ernerf_avatar as tea
+
     tm = tm_mod.TaskManager(device="cpu")
     nf = tm.add_task("nf", {"model": "ernerf", "video_path": video, "data_dir": str(tmp_path),
-                            "face_detector": "center"})
+                            "face_detector": "center", "size": 32, "train_steps": 2})
     _wait(nf)
-    assert nf.status == "failed" and "ROADMAP item 18" in nf.message
+    assert nf.status == "completed", nf.message
+    assert tea.load_avatar("nf", str(tmp_path), device="cpu")["nerf_params"] is not None
 
     small = TorchVAE()
     _init(small, seed=5)

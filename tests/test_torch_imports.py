@@ -12,8 +12,9 @@
     as does an unknown ``--model``, and a CUDA request to the paste-back
     raises instead of running the plain version; ``--model musetalk``'s
     int8 flags reach the plugin's warm-up instead of raising. A CUDA
-    request to the STT backend, the face models, the avatar builders or the
-    task manager raises without a card, and no task is queued.
+    request to the STT backend, the face models, the avatar builders (the
+    ER-NeRF build too) or the task manager raises without a card, and no
+    task is queued; so does one to the training CLI.
 """
 
 import ast
@@ -152,6 +153,34 @@ def test_import_guard_covers_stt_and_avatar_build_modules():
         assert f"{PKG}.{mod}" in SOURCES
 
 
+def test_import_guard_covers_the_training_modules():
+    """The training modules and the training-only nets are among the
+    sources ``test_no_jax_and_no_reference_package`` reads."""
+    for mod in ("train", "train.__main__", "train.cli", "train.data", "train.optim",
+                "train.musetalk_train", "train.wav2lip_train", "train.syncnet_train",
+                "train.ultralight_train", "models.syncnet", "models.wav2lip_disc",
+                "models.multiscale_disc", "models.musetalk_syncnet", "utils.checkpoint",
+                "utils.tree"):
+        assert f"{PKG}.{mod}" in SOURCES
+
+
+def test_training_cuda_requests_raise_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    from livetalking_tpu_torch.train import cli
+
+    for family in ("wav2lip", "musetalk", "ultralight"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(["--family", family, "--synthetic", "8", "--size", "tiny",
+                      "--out", str(tmp_path / "w.pkl")])
+    assert not os.listdir(tmp_path)
+    env = dict(os.environ, LIVETALKING_LOG=os.devnull)
+    r = subprocess.run([sys.executable, "-m", f"{PKG}.train", "--family", "ultralight",
+                        "--synthetic", "8", "--size", "tiny"],
+                       cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0 and "no CUDA device" in r.stderr
+
+
 def test_stt_and_avatar_build_cuda_requests_raise_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device")
@@ -177,6 +206,7 @@ def test_stt_and_avatar_build_cuda_requests_raise_without_a_card(tmp_path):
         lambda: genavatar.generate_musetalk_avatar("v.mp4", "a", str(tmp_path), device="cuda"),
         lambda: genavatar.generate_ultralight_avatar("v.mp4", "a", str(tmp_path),
                                                      device="cuda"),
+        lambda: genavatar.generate_ernerf_avatar("v.mp4", "a", str(tmp_path), device="cuda"),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
