@@ -9,7 +9,9 @@ MuseTalk (U-Net (320, 640, 1280, 1280), the full sd-vae-ft-mse,
 Whisper-tiny) in bf16 and in W8A8 int8, and the HuBERT-fed families
 (HuBERT-large, the Ultralight U-Net, ER-NeRF), at batch 16; then the
 speech-to-text path (Whisper-tiny, ``/api/asr``) and the avatar builds
-(S3FD, BiSeNet, PFLD, the task manager).
+(S3FD, BiSeNet, PFLD, the task manager), training, and the multi-device
+path (the sharded MuseTalk step, the scheduler driving it on every rank,
+``--mesh`` training) with ``--profile_dir``'s trace.
 
   1. device     — ``nvidia-smi`` name and power limit; compute capability 9.0.
   2. build      — every kernel under ``livetalking_tpu_torch/csrc``, one nvcc
@@ -120,7 +122,32 @@ speech-to-text path (Whisper-tiny, ``/api/asr``) and the avatar builds
                   FLOPs and busy share; 2 bf16 L1 steps; one step with the MuseTalk
                   expert (B=16, 22 launches); one Wav2Lip full-recipe step,
                   one Ultralight L1 step and one SyncNet step.
- 22. paced      — only with ``--paced``: MuseTalk sessions whose frames are
+ 22. multigpu   — (a) one rank per card over NCCL (``default_mesh_for`` of
+                  the card count): the full-width MuseTalk step (B=16, bf16)
+                  sharded over the mesh against the single-device step, bit
+                  for bit at one rank (1 LSB, f32, above), and 2 ``--mesh``
+                  training steps of the tiny MuseTalk L1 recipe against one
+                  rank; (b) two gloo ranks sharing cuda:0 (two NCCL ranks on
+                  one card are refused: the error is printed; which
+                  collectives gloo takes on CUDA tensors, probed): the full-
+                  width step at dp=2 and at tp=2 in f32 (TF32 off) within 1
+                  LSB of the single-device step, kernel 3's launches on each
+                  rank, the step's ms per rank, the tp all-gathers' count,
+                  bytes and time; one coalesced ``BatchScheduler`` round
+                  over the sharded step with the masked paste (kernel 2)
+                  composed on rank 0; 2 ``--mesh dp=2`` MuseTalk L1 steps
+                  at full width (f32, B=2) against one rank's run: losses
+                  (1e-6), each gradient leaf (``TRAIN_GRAD_REL``), the
+                  parameters bit-equal across ranks after each step, peak
+                  memory and the gradient all-reduce's bytes and time per
+                  rank; (c) with two cards or more, (b) over NCCL on two
+                  cards. Two ranks on one card check the arithmetic and the
+                  collectives' cost, not scaling.
+ 23. profile_dir — ``--profile_dir``'s profiler (``app.start_profiler``)
+                  around one composed MuseTalk step (tiny U-Net, full VAE,
+                  bf16, B=16, the masked paste): the trace it writes holds
+                  kernel 3's and kernel 2's CUDA events.
+ 24. paced      — only with ``--paced``: MuseTalk sessions whose frames are
                   taken at 25 fps, started 160 ms apart, with the shared
                   Whisper feature coalescer and without it (with, without,
                   without, with); speech frames/s, starved ticks, requests
@@ -2440,6 +2467,243 @@ def phase_train(torch, attn, peak_bw: float, peak_f32: float, peak_tf32: float) 
     return out
 
 
+MESH_LSB = 1  # tests/test_parallel.py's bar for the sharded steps
+# --mesh training against one rank: the losses, and each gradient leaf
+# (relative L2). The recipes' L1 terms have sign gradients, and rounding
+# that depends on the batch split flips some: tests/test_torch_parallel.py
+# measured 1e-2 on the CPU, so not 1e-5
+TRAIN_LOSS_REL, TRAIN_GRAD_REL = 1e-6, 5e-2
+
+
+def _nccl_same_card(rank: int, path: str, q) -> None:
+    """One of two NCCL ranks on cuda:0 (spawned): the error NCCL gives."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", store=dist.FileStore(path, 2), rank=rank, world_size=2,
+                                timeout=datetime.timedelta(seconds=30))
+        t = torch.ones(1, device="cuda:0")
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        q.put((rank, f"no error (sum {float(t)})"))
+    except Exception as e:  # the point: report what NCCL said
+        q.put((rank, f"{type(e).__name__}: {' '.join(str(e).split())[:240]}"))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def nccl_same_card_error() -> list:
+    """Two NCCL ranks on one card: what each reports (joined within 90 s)."""
+    import multiprocessing
+    import tempfile
+
+    ctx = multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=_nccl_same_card, args=(r, os.path.join(tmp, "store"), q),
+                             daemon=True) for r in range(2)]
+        for p in procs:
+            p.start()
+        out = []
+        for _ in procs:
+            try:
+                out.append(q.get(timeout=90))
+            except queue.Empty:
+                out.append((None, "no answer within 90 s"))
+        for p in procs:
+            p.join(timeout=10)
+            if p.is_alive():
+                p.terminate()
+    return sorted(out, key=lambda r: -1 if r[0] is None else r[0])
+
+
+def gloo_cuda_probe() -> dict:
+    """On each rank: which collectives gloo takes on CUDA tensors."""
+    import torch
+    import torch.distributed as dist
+
+    t = torch.ones(4, device="cuda")
+    calls = {"all_reduce": lambda: dist.all_reduce(t),
+             "broadcast": lambda: dist.broadcast(t, 0),
+             "all_gather": lambda: dist.all_gather_into_tensor(
+                 torch.empty(4 * dist.get_world_size(), device="cuda"), t)}
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+            torch.cuda.synchronize()
+            out[name] = "accepted"
+        except Exception as e:  # the probe's answer
+            out[name] = f"refused ({type(e).__name__}: {' '.join(str(e).split())[:120]})"
+    return out
+
+
+def train_ok(r: dict, dryrun) -> bool:
+    """``--mesh`` training against one rank: losses, gradient leaves (the
+    cancelled ones in absolute terms, ``dryrun.train_parity``)."""
+    return (r["loss_rel"] <= TRAIN_LOSS_REL and r["grad_rel"] <= TRAIN_GRAD_REL
+            and r["cancelled_err"] <= dryrun.CANCELLED)
+
+
+def _mesh_checks(tag: str, ranks, dryrun, cfg, inputs, train_argv) -> dict:
+    """The full-width MuseTalk step at dp=2 and at tp=2 against the single-
+    device step, one coalesced scheduler round with the masked paste, and
+    ``--mesh dp=2`` training held to one rank, on two ranks."""
+    out = {}
+    for spec in ("dp=2", "dp=1,tp=2"):
+        rs = ranks.run(dryrun.musetalk_frames, 1, cfg, *inputs, spec=spec, dtype="float32",
+                       single=True, timed=1, timeout_s=300)
+        d = dryrun.lsb(rs[0]["frames"], rs[0]["single"])
+        launches = [r["attention_launches"] for r in rs]
+        log(f"{tag}_step", mesh=spec.replace(",", "x"), dtype="float32", max_lsb=d,
+            attention_launches_per_rank=launches,
+            step_ms_per_rank=[f"{r['step_ms']:.3f}" for r in rs],
+            tp_gathers=rs[0]["tp_gathers"], tp_gather_mb=f"{rs[0]['tp_gather_bytes'] / 1e6:.1f}",
+            tp_gather_ms=f"{rs[0]['tp_gather_s'] * 1e3:.3f}",
+            dp_gather_mb=f"{rs[0]['dp_gather_bytes'] / 1e6:.2f}",
+            dp_gather_ms=f"{rs[0]['dp_gather_s'] * 1e3:.3f}")
+        if d > MESH_LSB or min(launches) < 1:
+            raise AssertionError(f"{tag} {spec}: {d} LSB from the single-device step, "
+                                 f"attention launches {launches}")
+        out[spec] = {"lsb": d, "attention_launches": launches}
+    rs = ranks.run(dryrun.scheduler_round, 1, cfg, dtype="float32", B=8, S=256, frame=320,
+                   timeout_s=300)
+    d = dryrun.lsb(rs[0]["frames"], rs[0]["single"])
+    log(f"{tag}_round", batches=rs[0]["batches"], frames=rs[0]["frames"].shape, max_lsb=d,
+        paste_launches=rs[0]["paste_launches"], follower_batches=rs[1]["served"])
+    if rs[0]["batches"] != 1 or rs[1]["served"] != 1 or d > MESH_LSB or rs[0]["paste_launches"] < 1:
+        raise AssertionError(f"{tag} scheduler round: {rs[0]['batches']} batches, {d} LSB, "
+                             f"{rs[0]['paste_launches']} paste launches")
+    out["round"] = {"lsb": d, "paste_launches": rs[0]["paste_launches"]}
+    rs = ranks.run(dryrun.train_parity, train_argv, timeout_s=420)
+    r0 = rs[0]
+    ar = [sum(b for b, _ in r["all_reduce"]) for r in rs]
+    log(f"{tag}_train", argv=" ".join(train_argv), loss_rel=f"{r0['loss_rel']:.3e}",
+        grad_rel=f"{r0['grad_rel']:.3e}", cancelled_err=f"{r0['cancelled_err']:.3e}",
+        leaves=r0["leaves"],
+        peak_gb_per_rank=[f"{r['peak_gb']:.2f}" for r in rs],
+        step_ms_per_rank=[f"{r['step_s'] * 1e3:.1f}" for r in rs],
+        one_rank_step_ms=f"{r0['ref_step_s'] * 1e3:.1f}",
+        all_reduce_mb=f"{ar[0] / 1e6:.1f}", all_reduce_calls=len(r0["all_reduce"]),
+        all_reduce_ms=f"{sum(t for _, t in r0['all_reduce']) * 1e3:.1f}")
+    if not train_ok(r0, dryrun):
+        raise AssertionError(f"{tag} --mesh training differs from one rank: {r0}")
+    out["train"] = r0
+    return out
+
+
+def phase_multigpu(torch) -> dict:
+    """(a) every card over NCCL: the full-width sharded MuseTalk step bit
+    for bit at one rank (1 LSB above), 2 ``--mesh`` training steps equal to
+    one rank's; (b) two gloo ranks sharing cuda:0 (NCCL refuses that): the
+    step at dp=2 and tp=2, one coalesced scheduler round with the masked
+    paste, ``--mesh dp=2`` MuseTalk L1 training at full width; (c) with two
+    cards or more, (b) over NCCL on distinct cards. Two ranks on one card
+    check the sharded arithmetic and the collectives' cost, not scaling."""
+    from livetalking_tpu_torch.models import sd_unet
+    from livetalking_tpu_torch.parallel import dist as pdist
+    from livetalking_tpu_torch.parallel import dryrun
+
+    torch.cuda.empty_cache()
+    n = torch.cuda.device_count()
+    cfg = sd_unet.MUSETALK
+    rng = np.random.default_rng(0)
+    B = 16
+    inputs = (rng.standard_normal((8, 32, 32, 8)).astype(np.float32),
+              (np.arange(B) % 8).astype(np.int32),
+              rng.standard_normal((B, 50, 384)).astype(np.float32))
+    out = {}
+    # one rank: the served dtype, bit for bit; more: f32 (bf16 steps of other
+    # batch splits are other roundings), within 1 LSB
+    dtype = "bfloat16" if n == 1 else "float32"
+    with pdist.Ranks(n) as ranks:
+        rs = ranks.run(dryrun.musetalk_frames, 1, cfg, *inputs, dtype=dtype, single=True,
+                       timed=3, timeout_s=300)
+        d = dryrun.lsb(rs[0]["frames"], rs[0]["single"])
+        launches = [r["attention_launches"] for r in rs]
+        log("multigpu_nccl_step", ranks=n, mesh=f"{n // (2 if n % 2 == 0 and n >= 4 else 1)}x"
+            f"{2 if n % 2 == 0 and n >= 4 else 1}", dtype=dtype, max_lsb=d,
+            attention_launches_per_rank=launches,
+            step_ms_per_rank=[f"{r['step_ms']:.3f}" for r in rs],
+            tp_gather_mb=f"{rs[0]['tp_gather_bytes'] / 1e6:.1f}")
+        if d > (0 if n == 1 else MESH_LSB) or min(launches) < 1:
+            raise AssertionError(f"NCCL sharded step at {n} rank(s): {d} LSB, launches {launches}")
+        argv = ["--family", "musetalk", "--size", "tiny", "--recipe", "l1", "--synthetic", "16",
+                "--steps", "2", "--batch_size", str(n), "--mesh", f"dp={n}", "--device", "cuda"]
+        r0 = ranks.run(dryrun.train_parity, argv, timeout_s=300)[0]
+        log("multigpu_nccl_train", argv=" ".join(argv), loss_rel=f"{r0['loss_rel']:.3e}",
+            grad_rel=f"{r0['grad_rel']:.3e}", cancelled_err=f"{r0['cancelled_err']:.3e}",
+            leaves=r0["leaves"])
+        if not train_ok(r0, dryrun):
+            raise AssertionError(f"--mesh dp={n} training differs from one rank: {r0}")
+        out["nccl"] = {"lsb": d, "attention_launches": launches, "train": r0}
+
+    errs = nccl_same_card_error()
+    log("multigpu_nccl_same_card", errors=json.dumps(errs))
+    train_argv = ["--family", "musetalk", "--recipe", "l1", "--synthetic", "8", "--steps", "2",
+                  "--batch_size", "2", "--mesh", "dp=2", "--device", "cuda"]
+    with pdist.Ranks(2, backend="gloo", devices=["cuda:0", "cuda:0"]) as ranks:
+        probe = ranks.run(gloo_cuda_probe, timeout_s=120)
+        log("multigpu_gloo_probe", per_rank=json.dumps(probe))
+        if any(v != "accepted" for r in probe for v in r.values()):
+            raise AssertionError(f"gloo refuses a collective on CUDA tensors: {probe} (the "
+                                 "port passes them as they are)")
+        out["gloo"] = _mesh_checks("multigpu_gloo", ranks, dryrun, cfg, inputs, train_argv)
+    if n >= 2:
+        with pdist.Ranks(2) as ranks:
+            out["nccl2"] = _mesh_checks("multigpu_nccl2", ranks, dryrun, cfg, inputs, train_argv)
+    else:
+        log("multigpu_nccl2", skipped="one CUDA device: the kernels on cuda:1 and NCCL across "
+            "cards are not verified here")
+    return out
+
+
+def phase_profile_dir(torch, app, muse, attention, blend) -> dict:
+    """``--profile_dir``'s profiler around one composed MuseTalk engine
+    step (bf16, B=16, the masked paste): the trace it writes must hold CUDA
+    kernel events of kernels 3 and 2."""
+    import tempfile
+
+    from livetalking_tpu_torch.engine.scheduler import AvatarStore
+    from livetalking_tpu_torch.models import sd_unet, sd_vae
+    from livetalking_tpu_torch.parallel import dryrun
+
+    dev = torch.device("cuda")
+    cfg = sd_unet.UNetConfig(**dryrun.DRY_UNET)
+    params = (sd_unet.init_params(1, cfg, torch.bfloat16, dev),
+              sd_vae.init_params(2, torch.bfloat16, dev))
+    rng = np.random.default_rng(3)
+    S, frame, B = 256, 480, 16
+    cycles, aux = dryrun.round_avatars(rng, 8, S, S // 2, S // 2, frame, frame, (32, 32, 8))
+    store = AvatarStore(item_shape=(32, 32, 8), dtype=np.float32, device=dev)
+    store.add("p", cycles[0], aux=aux)
+    step = muse.make_step_factory(cfg, torch.bfloat16, store,
+                                  {"S": S, "H": frame, "W": frame, "Ho": S // 2, "Wo": S // 2})(B)
+    idxs = torch.arange(B, device=dev, dtype=torch.int32) % 8
+    feats = torch.from_numpy(rng.standard_normal((B, 50, 384)).astype(np.float32)).to(dev)
+    step(params, store.buffer, idxs, feats)  # warm
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        stop = app.start_profiler(tmp, "cuda")
+        step(params, store.buffer, idxs, feats)
+        torch.cuda.synchronize()
+        path = stop()
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        size = os.path.getsize(path)
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    ours = {k: sorted(n[:60] for n in kernels if k in n) for k in ("attention", "paste_kernel")}
+    log("profile_dir", trace_bytes=size, cuda_kernel_events=len(kernels),
+        hand_written=json.dumps(ours))
+    if not all(ours.values()):
+        raise AssertionError(f"--profile_dir trace lacks the hand-written kernels: {ours}")
+    return ours
+
 def main(argv) -> int:
     import argparse
 
@@ -2536,6 +2800,8 @@ def main(argv) -> int:
     timed("genavatar", phase_genavatar, torch, app, session_manager)
     torch.cuda.empty_cache()
     tr = timed("train", phase_train, torch, attention, peak_bw, peak_f32, peak_bf16 / 2)
+    mg = timed("multigpu", phase_multigpu, torch)
+    timed("profile_dir", phase_profile_dir, torch, app, muse, attention, blend)
     if paced:
         timed("paced", phase_paced_ab, torch, app, muse, synthetic, sd_vae, session_manager,
               paced)
@@ -2565,13 +2831,20 @@ def main(argv) -> int:
          "ultralight_launches": ue["launches"], "s168_ms": s168["paste_ms"],
          "s168_device_ms": s168["paste_device_ms"], "s168_plain_ms": s168["plain_ms"],
          "s168_bound_ms": s168["paste_bound_ms"], "s168_bound_by": s168["paste_bound_by"]},
-        row("blend_mask", src + "blend.cu", "livetalking_tpu/ops/pallas_blend.py:141",
-            me["blend_mask"], bm["max_abs_err"], paste_row(bm["rows"][(H, W, 128, 400)]), None),
+        {**row("blend_mask", src + "blend.cu", "livetalking_tpu/ops/pallas_blend.py:141",
+               me["blend_mask"], bm["max_abs_err"], paste_row(bm["rows"][(H, W, 128, 400)]),
+               None),
+         # the sharded scheduler round on rank 0 (two gloo ranks on one card)
+         "multigpu_launches": mg["gloo"]["round"]["paste_launches"]},
         {**row("attention", src + "attention.cu", "livetalking_tpu/ops/pallas_attention.py:79",
                me["attention"], at["max_abs_err"], at["step"], at["step"]["library_ms"]),
          # the training step: forward launches of the f32 full-recipe run
          # (3 steps) and the PyTorch backward's time per step (B=10, f32)
          "train_launches": sum(tr["musetalk_full"]["launches"]),
+         # one sharded step on each rank: NCCL over every card, gloo dp=2, tp=2
+         "multigpu_launches": {"nccl": mg["nccl"]["attention_launches"],
+                               **{k: v["attention_launches"] for k, v in mg["gloo"].items()
+                                  if k in ("dp=2", "dp=1,tp=2")}},
          "backward_ms": tr["attention"]["backward_ms"],
          "train_forward_ms": tr["attention"]["forward_ms"]},
         row("conv3x3_q", src + "conv.cu", "livetalking_tpu/ops/pallas_conv.py:130",

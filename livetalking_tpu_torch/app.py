@@ -8,16 +8,20 @@ step, wire the session manager, start the aiohttp server. ``queue`` and
 ``null`` transports start a session-0 render thread at boot.
 
 ``POST /session`` creates a session without WebRTC signaling (returns
-``{"sessionid": ...}``) and ``POST /session/close`` stops one. WebRTC
-signaling, the chat LLM bridge, recording and ``--profile_dir`` come with
-later slices (ROADMAP.md). ``aiohttp`` is imported only by the web app.
+``{"sessionid": ...}``) and ``POST /session/close`` stops one.
+``--profile_dir`` traces the process with ``torch.profiler`` (CPU, and
+CUDA on the card) from boot and writes the trace there at exit. WebRTC
+signaling, the chat LLM bridge and recording come with later slices
+(ROADMAP.md). ``aiohttp`` is imported only by the web app.
 """
 
 from __future__ import annotations
 
+import atexit
 import copy
 import importlib
 import json
+import os
 from threading import Event, Thread
 
 from livetalking_tpu_torch import registry
@@ -157,6 +161,35 @@ def build_web_app():
     return app
 
 
+def start_profiler(profile_dir: str, device):
+    """Trace CPU activity, and CUDA activity on the card, from now on (the
+    port's ``jax.profiler.start_trace``). Returns ``stop()``, which ends the
+    trace and writes it to ``<profile_dir>/trace_<pid>.json`` (Chrome
+    trace format, TensorBoard and Perfetto read it) and returns the path; a
+    failure to write is logged at error level and raised."""
+    import torch
+
+    os.makedirs(profile_dir, exist_ok=True)
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=acts)
+    prof.start()
+
+    def stop() -> str:
+        prof.stop()
+        path = os.path.join(profile_dir, f"trace_{os.getpid()}.json")
+        try:
+            prof.export_chrome_trace(path)
+        except Exception:
+            logger.exception("--profile_dir: could not write the trace to %s", path)
+            raise
+        logger.info("torch.profiler trace written to %s", path)
+        return path
+
+    return stop
+
+
 def main() -> None:
     import asyncio
 
@@ -173,7 +206,8 @@ def main() -> None:
     logger.info(options)
     load_plugin_stack(options)
     if opt.profile_dir:
-        logger.warning("--profile_dir is not ported yet; no trace is written")
+        atexit.register(start_profiler(opt.profile_dir, opt.device))  # written at shutdown
+        logger.info("torch.profiler tracing to %s", opt.profile_dir)
 
     if opt.transport in ("queue", "null"):
         # boot-time session 0 with a background render thread

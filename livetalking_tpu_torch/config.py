@@ -135,9 +135,10 @@ def _declare_flags(parser: argparse.ArgumentParser) -> None:
              "and, with --coalesce, ultralight; masked for musetalk) instead "
              "of per-frame host cv2")
     add("--mesh", type=str, default="",
-        help="device mesh spec (multi-GPU; not ported yet)")
+        help="device mesh spec; accepted and unused by the server, as in the JAX "
+             "package (multi-GPU: parallel/, the training CLI's --mesh, parallel.dryrun)")
     add("--profile_dir", type=str, default="",
-        help="profiler trace directory (not ported yet)")
+        help="write a torch.profiler trace (CPU and CUDA) of the whole run here at exit")
     add("--models_dir", type=str, default="./models")
     add("--data_dir", type=str, default="./data")
 

@@ -11,6 +11,8 @@ All sessions of a model family share ONE device worker:
     their indices and feature windows, pads to a bucketed super-batch size,
     runs ONE device step, and scatters the resulting frames back to
     per-session futures.
+  - ``SpmdLeader`` / ``serve_follower`` run that step on every rank of a
+    device mesh: rank 0 schedules and sends each super-batch to the others.
 
 The dispatch thread queues each batch's device->host copy on a side
 stream, behind an event recorded after the step, into a ring of pinned host
@@ -520,6 +522,93 @@ class BatchScheduler:
         logger.info("batch scheduler stop (batches=%d requests=%d frames=%d)",
                     self.batches_run, self.requests_run, self.frames_run)
 
+
+# -- a step that runs on every rank of a mesh ---------------------------------
+
+_RUN, _STOP = 1, 2
+_HEADER = 8  # cmd, total, new buffer?, buffer rows, feature ndim, <= 3 feature dims
+
+
+class SpmdLeader:
+    """Rank 0's side of a scheduler whose step runs on every rank of a mesh
+    (``models/musetalk.py::make_sharded_infer_fn``).
+
+    The scheduler's batches depend on timing, so only rank 0 runs it; the
+    other ranks must run the same batches in the same order, or the first
+    collective of two different ones deadlocks. So before each super-batch
+    rank 0 sends them its size,
+    indices and features, and the store's buffer whenever it is another
+    tensor than the one last sent (``AvatarStore.add`` swaps in a new
+    one); ``serve_follower`` runs those steps. The aux planes stay on rank
+    0: the paste-back runs there, after the step gathers the faces.
+
+    ``wrap(step_factory)`` is the factory to give ``BatchScheduler``;
+    ``stop()`` ends the followers' loops (after the scheduler stopped)."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        # prewarm and dispatch call steps from two threads: one batch's
+        # messages and collectives at a time
+        self._lock = threading.Lock()
+        self._sent: Optional[torch.Tensor] = None
+
+    def _header(self, cmd: int, total: int = 0, buffer=None, feats=None) -> None:
+        h = torch.zeros(_HEADER, dtype=torch.int64)
+        h[0], h[1] = cmd, total
+        if buffer is not None:
+            h[2], h[3] = 1, buffer.shape[0]
+        if feats is not None:
+            dims = feats.shape[1:]
+            h[4] = len(dims)
+            h[5:5 + len(dims)] = torch.tensor(dims)
+        self.mesh.broadcast_(h.to(self.mesh.device))
+
+    def wrap(self, step_factory: Callable[[int], Callable]) -> Callable[[int], Callable]:
+        def factory(total: int):
+            step = step_factory(total)
+
+            def lead(model, buffer, idxs, feats):
+                with self._lock:
+                    new = buffer if buffer is not self._sent else None
+                    self._header(_RUN, total, new, feats)
+                    if new is not None:
+                        self.mesh.broadcast_(buffer)
+                        self._sent = buffer
+                    idxs = self.mesh.broadcast_(idxs.to(torch.int32))
+                    feats = self.mesh.broadcast_(feats.float())
+                    return step(model, buffer, idxs, feats)
+            return lead
+        return factory
+
+    def stop(self) -> None:
+        with self._lock:
+            self._header(_STOP)
+
+
+def serve_follower(mesh, model, step_factory: Callable[[int], Callable],
+                   item_shape: Sequence[int], dtype: torch.dtype) -> int:
+    """The other ranks' side of ``SpmdLeader``: run every super-batch rank 0
+    announces, on this rank's copy of the store's buffer (``item_shape``,
+    ``dtype``), until it sends stop. Returns the number of batches run."""
+    dev = mesh.device
+    steps: Dict[int, Callable] = {}
+    buffer = None
+    n = 0
+    while True:
+        h = mesh.broadcast_(torch.zeros(_HEADER, dtype=torch.int64, device=dev)).tolist()
+        if h[0] == _STOP:
+            return n
+        total = h[1]
+        if h[2]:
+            buffer = mesh.broadcast_(torch.empty((h[3],) + tuple(item_shape), dtype=dtype,
+                                                 device=dev))
+        idxs = mesh.broadcast_(torch.empty(total, dtype=torch.int32, device=dev))
+        feats = mesh.broadcast_(torch.empty((total,) + tuple(h[5:5 + h[4]]),
+                                            dtype=torch.float32, device=dev))
+        if total not in steps:
+            steps[total] = step_factory(total)
+        steps[total](model, buffer, idxs, feats)
+        n += 1
 
 def parse_buckets(opt) -> tuple:
     """--coalesce_buckets spec ('1,2,4,8') -> sorted int tuple."""

@@ -40,6 +40,7 @@ from livetalking_tpu_torch.models.layers import linear_f32 as linear
 from livetalking_tpu_torch.models.layers import to_numpy
 from livetalking_tpu_torch.ops.attention import attention as attention_kernel
 from livetalking_tpu_torch.ops.conv import CHANNEL_MULTIPLE, conv3x3_q, int8_matmul
+from livetalking_tpu_torch.parallel.tp import gather_conv_output
 
 Params = Dict[str, Any]
 
@@ -81,17 +82,20 @@ def group_norm(p: Params, x: torch.Tensor, groups: int = 32, eps: float = 1e-6) 
 
 
 def conv(p: Params, x: torch.Tensor, stride: int = 1, padding: int = 1) -> torch.Tensor:
+    """NHWC conv; a tp-sharded node (``parallel.tp.TPConv``) computes its
+    output channels and gathers the rest over the tp group."""
     y = F.conv2d(_nchw(x), p["w"].to(x.dtype), p["b"].to(x.dtype), stride=stride,
                  padding=padding)
-    return _nhwc(y)
+    return gather_conv_output(p, _nhwc(y))
 
 
 def conv_asym(p: Params, x: torch.Tensor, stride: int, pad) -> torch.Tensor:
     """Conv with per-side padding ((top, bottom), (left, right)); the VAE
-    downsampler pads (0, 1, 0, 1)."""
+    downsampler pads (0, 1, 0, 1). tp-sharded nodes as in ``conv``."""
     (top, bottom), (left, right) = pad
     xp = F.pad(_nchw(x), (left, right, top, bottom))
-    return _nhwc(F.conv2d(xp, p["w"].to(x.dtype), p["b"].to(x.dtype), stride=stride))
+    y = F.conv2d(xp, p["w"].to(x.dtype), p["b"].to(x.dtype), stride=stride)
+    return gather_conv_output(p, _nhwc(y))
 
 
 def resnet_block(p: Params, x: torch.Tensor, temb: Optional[torch.Tensor] = None,

@@ -61,7 +61,11 @@ class ConvSpec:
 
 
 class ConvLayer(nn.Module):
-    """conv/tconv (+ residual) (+ activation) for one ``ConvSpec``."""
+    """conv/tconv (+ residual) (+ activation) for one ``ConvSpec``.
+
+    ``parallel.mesh.shard_params`` swaps ``self.conv`` for a
+    ``parallel.tp.TPConv2d`` (this rank's output channels, gathered over
+    tp), so a sharded layer runs this same ``forward``."""
 
     def __init__(self, spec: ConvSpec):
         super().__init__()

@@ -71,6 +71,38 @@ def make_infer_fn(unet_cfg: sd_unet.UNetConfig, batch_size: int, ctx_len: int = 
     return step
 
 
+
+def make_sharded_infer_fn(unet_cfg: sd_unet.UNetConfig, batch_size: int, mesh,
+                          ctx_len: int = 50, dtype: torch.dtype = torch.bfloat16):
+    """The multi-device step, called alike on every rank of ``mesh``:
+
+        (unet_params, vae_params, latent_cycle, idxs (B,), whisper (B, ctx_len, 384))
+            -> (B, 256, 256, 3) uint8 BGR faces, on every rank
+
+    The batch runs over ``dp`` (each rank takes its B/dp rows of ``idxs``
+    and ``whisper``), the U-Net's and the VAE's conv channels over ``tp``
+    (parameters placed with ``parallel.mesh.shard_params``); the latent
+    cycle is whole on every rank. The faces are gathered over dp. Self-
+    attention runs kernel 3 unchanged inside every rank's U-Net blocks.
+    ``batch_size`` must divide over dp. No int8 route, as in the JAX
+    package."""
+    from livetalking_tpu_torch.parallel.mesh import DP_AXIS, gather_batch, shard_batch
+
+    dp = mesh.shape[DP_AXIS]
+    if batch_size % dp:
+        raise ValueError(f"batch {batch_size} not divisible by dp={dp}")
+    local = make_infer_fn(unet_cfg, batch_size // dp, ctx_len, dtype)
+
+    @torch.inference_mode()
+    def step(unet_params, vae_params, latent_cycle, idxs, whisper):
+        if whisper.shape[0] != batch_size:
+            raise ValueError(f"step built for B={batch_size}, got {whisper.shape[0]} feature rows")
+        faces = local(unet_params, vae_params, latent_cycle, shard_batch(idxs, mesh),
+                      shard_batch(whisper, mesh))
+        return gather_batch(faces, mesh)
+
+    return step
+
 @torch.inference_mode()
 def encode_avatar_latents(vae_params, faces_bgr: np.ndarray, batch: int = 8,
                           device="cuda", dtype: torch.dtype = torch.float32) -> np.ndarray:

@@ -208,7 +208,10 @@ def make_infer_fn(batch_size: int, img_size: int = 256, dtype: torch.dtype = tor
     The reference's host-side batch prep (gather, lower-half mask, concat,
     /255) runs on the device; ``face_cycle_u8`` stays resident there, only
     B indices go up per step. ``model`` must already be in ``dtype`` on the
-    tensors' device (``prepare``)."""
+    tensors' device (``prepare``). On a device mesh the same step takes
+    ``parallel.mesh.shard_params(model, mesh)`` (tp) and each rank's
+    ``shard_batch`` rows (dp, ``batch_size`` = B / dp); ``gather_batch``
+    joins the frames."""
     half = img_size // 2
 
     @torch.inference_mode()

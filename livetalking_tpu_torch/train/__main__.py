@@ -1,3 +1,4 @@
 from livetalking_tpu_torch.train.cli import main
 
-main()
+if __name__ == "__main__":
+    main()

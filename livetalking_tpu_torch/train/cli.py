@@ -18,13 +18,27 @@ step and the data sampler's random state, so ``--resume`` continues the
 run exactly (N + M steps give what N + M steps in one run give).
 ``--init`` and ``--sync_init`` read a weights tree written by either
 package: a tree in the JAX package's layout goes through the family's
-``params_from_jax``. ``--mesh`` (multi-device training) is not ported and
-raises.
+``params_from_jax``.
+
+``--mesh dp=N[,tp=M]`` trains on N*M ranks, one per device (NCCL on the
+card; gloo ranks with ``--device cpu``): spawned here, or joined when a
+launcher (``torchrun``) started this process. Every rank draws the same
+global batch from ``--seed`` and takes its dp slice, cut at clip
+boundaries (dp must divide the clips: a clip's sync and GAN terms do not
+split); the parameters are whole on every rank, and the tp ranks of a dp
+slice compute the same slice, as the JAX package's ``shard_batch`` does.
+Gradients are summed over dp in flattened buckets and divided by dp
+before each optimizer step, so the parameters stay bit-equal on every
+rank (checked at every logged step and at the end). The losses are batch
+means over equal slices, so their dp mean is the global batch's. Only
+rank 0 logs and writes ``--out`` and its ``.state``.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
+import math
 import time
 from types import SimpleNamespace
 from typing import Any, Callable, Dict, Optional
@@ -33,9 +47,6 @@ import numpy as np
 import torch
 
 from livetalking_tpu_torch.utils.logger import logger
-
-MESH_MISSING = "--mesh: multi-device training is not ported yet (ROADMAP item 19)"
-
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser("livetalking_tpu_torch.train")
@@ -68,7 +79,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--size", default="full", choices=["full", "tiny"],
                    help="tiny shrinks the U-Net/feature nets (tests, smoke)")
     p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
-    p.add_argument("--mesh", default="", help="mesh spec (not ported: raises)")
+    p.add_argument("--mesh", default="",
+                   help="dp x tp mesh, e.g. dp=2 or dp=2,tp=2: one rank per device (spawned, "
+                        "or joined under torchrun); the batch is cut over dp")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--log_every", type=int, default=20)
     p.add_argument("--save_every", type=int, default=0)
@@ -128,19 +141,82 @@ def _load_sync_expert(args, use_mt_sync: bool, dev):
                          like=syncnet.SyncNet(img))
 
 
+def _clip_len(args) -> int:
+    if args.recipe != "full":
+        return 1
+    return 16 if args.family == "musetalk" and args.sync_backend == "musetalk" else 5
+
+
+def _check_batch(args) -> None:
+    """The batch must hold whole clips, and with ``--mesh`` split over dp
+    at clip boundaries."""
+    clip_len = _clip_len(args)
+    if args.batch_size % clip_len:
+        raise SystemExit(
+            f"--recipe full samples {clip_len}-frame clips: --batch_size must be a multiple "
+            f"of {clip_len} (got {args.batch_size}; try "
+            f"{((args.batch_size + clip_len - 1) // clip_len) * clip_len})")
+    if args.mesh:
+        from livetalking_tpu_torch.parallel.mesh import DP_AXIS, parse_mesh_spec
+
+        dp = parse_mesh_spec(args.mesh).get(DP_AXIS, 1)
+        clips = args.batch_size // clip_len
+        if clips % dp:
+            raise SystemExit(
+                f"--mesh {args.mesh}: --batch_size {args.batch_size} is {clips} clip(s) of "
+                f"{clip_len} frame(s), which do not split over dp={dp} (a clip's sync and "
+                f"GAN terms cannot be cut); use a multiple of {clip_len * dp}")
+
+
 def main(argv=None, on_step: Optional[Callable[[int, Dict[str, float]], None]] = None
          ) -> Dict[str, Any]:
     """Run the CLI; returns the last step's metrics as floats. ``on_step(i,
-    metrics)`` is called after each step, once its metrics are on the host."""
+    metrics)`` is called after each step, once its metrics are on the host
+    (after the ranks finished, in step order, when ``--mesh`` spawned
+    them)."""
     args = parse_args(argv)
-    if args.mesh:
-        raise SystemExit(MESH_MISSING)
+    _check_batch(args)
+    if not args.mesh:
+        return train(args, on_step=on_step)["metrics"]
+    from livetalking_tpu_torch.parallel import dist as pdist
+    from livetalking_tpu_torch.parallel.mesh import make_mesh, parse_mesh_spec
+
+    if pdist.current() is not None or pdist.launched():
+        pdist.join(args.device)
+        return train(args, make_mesh(args.mesh), on_step)["metrics"]
+    world = math.prod(parse_mesh_spec(args.mesh).values())
+    threads = max(1, torch.get_num_threads() // world) if args.device == "cpu" else None
+    results = pdist.launch(_mesh_rank, world, device=args.device, threads=threads,
+                           args=(list(argv) if argv is not None else None,))
+    history = results[0]["history"]
+    if on_step is not None:
+        for i, m in history:
+            on_step(i, m)
+    return history[-1][1] if history else {}
+
+
+def _mesh_rank(argv) -> Dict[str, Any]:
+    """One spawned rank of ``main``: its training run's metrics history."""
+    from livetalking_tpu_torch.parallel.mesh import make_mesh
+
+    args = parse_args(argv)
+    out = train(args, make_mesh(args.mesh))
+    return {"history": out["history"]}
+
+
+def train(args, mesh=None, on_step: Optional[Callable[[int, Dict[str, float]], None]] = None
+          ) -> Dict[str, Any]:
+    """The training run of ``args`` (parsed flags), on ``mesh``'s rank when
+    one is given: ``{"metrics": last step's, "history": [(step, metrics)],
+    "optimizers": {name: optim.Optimizer}}``."""
     from livetalking_tpu_torch.train import data as td
     from livetalking_tpu_torch.utils.checkpoint import load_pytree, save_params, save_pytree
     from livetalking_tpu_torch.utils.device import resolve_device
     from livetalking_tpu_torch.utils.tree import to_torch_tree
 
-    dev = resolve_device(args.device)
+    _check_batch(args)
+    dev = mesh.device if mesh is not None else resolve_device(args.device)
+    lead = mesh is None or mesh.rank == 0
     rng = np.random.RandomState(args.seed)
     opt = SimpleNamespace(models_dir=args.models_dir, dtype=args.dtype, device=str(dev),
                           musetalk_size=args.size,
@@ -149,18 +225,13 @@ def main(argv=None, on_step: Optional[Callable[[int, Dict[str, float]], None]] =
     audio = _load_audio(args, faces.shape[0])
     full = args.recipe == "full"
     use_mt_sync = args.family == "musetalk" and args.sync_backend == "musetalk"
-    clip_len = (16 if use_mt_sync else 5) if full else 1
-    if full and args.batch_size % clip_len:
-        raise SystemExit(
-            f"--recipe full samples {clip_len}-frame clips: --batch_size must be a multiple "
-            f"of {clip_len} (got {args.batch_size}; try "
-            f"{((args.batch_size + clip_len - 1) // clip_len) * clip_len})")
+    clip_len = _clip_len(args)
     sync_p = None
     # the frozen sync expert is only meaningful with TRAINED weights; without
     # --sync_init its weight is 0 so a random expert cannot drag the generator
     if full and args.sync_init:
         sync_p = _load_sync_expert(args, use_mt_sync, dev)
-    elif full:
+    elif full and lead:
         logger.warning("full recipe without --sync_init: sync expert weight set to 0 (train a "
                        "SyncNet first - train/syncnet_train.py - and pass its checkpoint to "
                        "enable the sync loss)")
@@ -261,6 +332,12 @@ def main(argv=None, on_step: Optional[Callable[[int, Dict[str, float]], None]] =
         def current():
             return params
 
+    if mesh is not None:
+        from livetalking_tpu_torch.parallel.mesh import all_reduce_mean
+
+        for o in opts.values():
+            o.reduce_grads = functools.partial(all_reduce_mean, mesh)
+        trained = [p for o in opts.values() for p in o.params]
     start = 0
     if args.resume:  # exact continuation: params, optimizer states, step, sampler
         st = load_pytree(args.resume)
@@ -269,7 +346,8 @@ def main(argv=None, on_step: Optional[Callable[[int, Dict[str, float]], None]] =
             o.load_state_dict(st["opts"][k])
         rng.set_state(st["rng"])
         start = int(st["step"])
-        logger.info("resumed full train state from %s at step %d", args.resume, start)
+        if lead:
+            logger.info("resumed full train state from %s at step %d", args.resume, start)
 
     it = td.clip_batches(args.family, faces, np.asarray(feats), args.batch_size, rng,
                          clip_len=clip_len, audio=audio if full else None)
@@ -282,22 +360,45 @@ def main(argv=None, on_step: Optional[Callable[[int, Dict[str, float]], None]] =
 
     t0 = time.time()
     metrics: Dict[str, Any] = {}
+    history = []
     for i in range(start, args.steps):
-        batch = to_torch_tree(next(it), dev)
+        batch = next(it)
+        if mesh is not None:
+            from livetalking_tpu_torch.parallel.mesh import shard_batch
+
+            batch = shard_batch(batch, mesh)  # this rank's whole clips
         rng_state = rng.get_state()  # the sampler's state after this step's batch
-        metrics = {k: float(v) for k, v in step(batch).items()}
+        metrics = _mean_over_dp(mesh, step(to_torch_tree(batch, dev)))
+        history.append((i, metrics))
         if on_step is not None:
             on_step(i, metrics)
-        if args.log_every and (i % args.log_every == 0 or i == args.steps - 1):
+        logged = args.log_every and (i % args.log_every == 0 or i == args.steps - 1)
+        if mesh is not None and (logged or i == args.steps - 1):
+            from livetalking_tpu_torch.parallel.mesh import check_replicas
+
+            check_replicas(mesh, trained, i + 1)
+        if logged and lead:
             rate = (i + 1 - start) / (time.time() - t0)
             logger.info("train[%s] step %d/%d %s (%.2f steps/s)", args.family, i + 1,
                         args.steps, " ".join(f"{k}={v:.4f}" for k, v in metrics.items()), rate)
-        if args.out and args.save_every and (i + 1) % args.save_every == 0:
+        if args.out and args.save_every and (i + 1) % args.save_every == 0 and lead:
             save_all(i + 1, rng_state)
-    if args.out:
+    if args.out and lead:
         save_all(args.steps, rng.get_state())
         logger.info("saved checkpoint to %s (+ .state for --resume)", args.out)
-    return metrics
+    return {"metrics": metrics, "history": history, "optimizers": opts}
+
+
+def _mean_over_dp(mesh, metrics: Dict[str, Any]) -> Dict[str, float]:
+    """The step's metrics as floats; under a mesh their mean over dp (each
+    is a batch mean over equal slices, so this is the global batch's)."""
+    if mesh is None or mesh.shape["dp"] == 1:
+        return {k: float(v) for k, v in metrics.items()}
+    keys = sorted(metrics)
+    v = torch.stack([torch.as_tensor(metrics[k], dtype=torch.float64).detach().reshape(())
+                     .to(mesh.device) for k in keys])
+    v = mesh.all_reduce_(v, "dp") / mesh.shape["dp"]
+    return dict(zip(keys, v.tolist()))
 
 
 def _snapshot(snap: Dict[str, Any]) -> Dict[str, Any]:

@@ -13,7 +13,7 @@ root). The schedules are optax's formulas in plain Python.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, Union
+from typing import Any, Callable, Dict, List, Optional, Union
 
 import torch
 
@@ -67,9 +67,15 @@ class Optimizer:
                        weight_decay=weight_decay)
         self.schedule = schedule if callable(schedule) else (lambda count: schedule)
         self.count = 0
+        # called with the leaves' gradients before each update (the
+        # training CLI's --mesh sets their mean over dp here)
+        self.reduce_grads: Optional[Callable[[List[torch.Tensor]], None]] = None
 
     def step(self) -> None:
-        """Apply the gradients in the leaves' ``.grad``, then clear them."""
+        """Apply the gradients in the leaves' ``.grad`` (through
+        ``reduce_grads`` first, when set), then clear them."""
+        if self.reduce_grads is not None:
+            self.reduce_grads([p.grad for p in self.params if p.grad is not None])
         for group in self.opt.param_groups:
             group["lr"] = float(self.schedule(self.count))
         self.opt.step()

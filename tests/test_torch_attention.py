@@ -18,6 +18,7 @@ import jax.numpy as jnp
 from livetalking_tpu.ops import pallas_attention as jpa
 from livetalking_tpu_torch.models import diffusion_blocks as tdb
 from livetalking_tpu_torch.ops import attention as tpa
+from test_torch_whisper_decoder import torch_one_thread  # noqa: F401
 
 ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
 

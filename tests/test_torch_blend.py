@@ -25,6 +25,7 @@ import torch
 
 from livetalking_tpu.ops import pallas_blend as pb
 from livetalking_tpu_torch.ops import blend as tb
+from test_torch_whisper_decoder import torch_one_thread  # noqa: F401
 
 S = 256
 

@@ -22,6 +22,7 @@ from livetalking_tpu.models import sd_vae as jv
 from livetalking_tpu.ops import pallas_conv as jpc
 from livetalking_tpu_torch.models import sd_vae as tv
 from livetalking_tpu_torch.ops import conv as tc
+from test_torch_whisper_decoder import torch_one_thread  # noqa: F401
 
 
 def _hwio_to_port(w: np.ndarray) -> torch.Tensor:

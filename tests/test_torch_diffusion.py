@@ -23,6 +23,7 @@ from livetalking_tpu.models import sd_unet as ju
 from livetalking_tpu_torch.models import diffusion_blocks as tdb
 from livetalking_tpu_torch.models import sd_unet as tu
 from test_sd_converters import TorchUNet, _init
+from test_torch_whisper_decoder import torch_one_thread  # noqa: F401
 
 BLOCK_ATOL = 1e-4
 TINY = dict(block_out=(32, 64, 96, 96), heads=2)

@@ -25,6 +25,7 @@ from livetalking_tpu_torch.engine.scheduler import (
     parse_buckets,
     resolve_coalesce_window,
 )
+from test_torch_whisper_decoder import torch_one_thread  # noqa: F401
 
 H, W, S = 480, 640, 256
 BOX = (120, 360, 200, 440)
@@ -56,7 +57,7 @@ def test_two_coalesced_sessions_with_device_paste_stream_full_frames():
         for t in threads:
             t.start()
         for k, s in enumerate(sessions):
-            s.put_msg_txt(f"engine test {k} speaks")
+            s.put_msg_txt(f"hi {k}")
         got = [[], []]
         deadline = time.time() + 150
         while time.time() < deadline:

@@ -19,6 +19,7 @@ from livetalking_tpu.models import ernerf as jn
 from livetalking_tpu.utils.synthetic import make_synthetic_avatar
 from livetalking_tpu_torch.avatars import ernerf_avatar as tea
 from livetalking_tpu_torch.models import ernerf as tn
+from test_torch_whisper_decoder import torch_one_thread  # noqa: F401
 
 SIZE, NS, B = 16, 4, 2
 

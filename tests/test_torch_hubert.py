@@ -24,6 +24,7 @@ from livetalking_tpu_torch.audio_features.hubert_features import HubertFeatures
 from livetalking_tpu_torch.avatars.ultralight_avatar import TINY_HUBERT
 from livetalking_tpu_torch.config import default_opt
 from livetalking_tpu_torch.models import hubert as th
+from test_torch_whisper_decoder import torch_one_thread  # noqa: F401
 
 ATOL = 2e-4
 CONFIGS = {

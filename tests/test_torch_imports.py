@@ -164,6 +164,14 @@ def test_import_guard_covers_the_training_modules():
         assert f"{PKG}.{mod}" in SOURCES
 
 
+def test_import_guard_covers_the_parallel_modules():
+    """The multi-device modules (their spawned ranks import them by name)
+    are among the sources ``test_no_jax_and_no_reference_package`` reads,
+    and on the path ``chip_smoke.py`` drives."""
+    for mod in ("parallel", "parallel.dist", "parallel.mesh", "parallel.tp", "parallel.dryrun"):
+        assert f"{PKG}.{mod}" in SOURCES and f"{PKG}.{mod}" in SMOKE_PATH
+
+
 def test_training_cuda_requests_raise_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device")

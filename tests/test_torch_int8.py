@@ -51,6 +51,7 @@ from livetalking_tpu_torch.models import whisper_encoder as twe
 from livetalking_tpu_torch.ops import blend as tb
 from livetalking_tpu_torch.utils import synthetic
 from test_sd_converters import TorchUNet, TorchVAE, _init
+from test_torch_whisper_decoder import torch_one_thread  # noqa: F401
 
 TINY = dict(block_out=(32, 64), layers_per_block=1, heads=2)
 VAE_CH = (32, 32, 64, 64)

@@ -707,3 +707,44 @@ def test_scheduler_pinned_ring_keeps_every_batch(cuda):
         assert r.shape == (2, 8, 8, 3)
         assert (r[0] == k % 64).all() and (r[1] == (k + 1) % 64).all()
     assert sched.requests_run == 20
+
+
+@pytest.fixture
+def cuda1():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: a mesh rank's card other than cuda:0")
+    return torch.device("cuda", 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+def test_kernels_launch_on_their_tensors_device_and_stream(cuda1, dtype, atol):
+    """A rank of a device mesh owns ``cuda:k``, k > 0: kernel 3 (attention)
+    and kernel 2 (masked paste) launch on their tensors' device and its
+    current stream, whatever the current device is, and match their plain
+    versions there."""
+    torch.cuda.set_device(0)
+    gen = torch.Generator(device=cuda1).manual_seed(1)
+    q, k, v = (torch.randn((16, 8, 1024, 40), device=cuda1, generator=gen).to(dtype)
+               for _ in range(3))
+    rng = np.random.default_rng(7)
+    H, W, N, place, S = PASTE_CASES["480x640"]
+    _, planes_np, Ho, Wo = _masked_planes(rng, H, W, N, place)
+    planes = [torch.from_numpy(p).to(cuda1) for p in planes_np]
+    frames = torch.from_numpy(rng.integers(0, 256, (N, H, W, 3), dtype=np.uint8)).to(cuda1)
+    pred = torch.from_numpy(rng.integers(0, 256, (16, S, S, 3), dtype=np.uint8)).to(cuda1)
+    idxs = torch.from_numpy(rng.integers(0, N, (16,)).astype(np.int32)).to(cuda1)
+    launches = (attention.attention.launches, blend.blend_masked_.launches)
+    side = torch.cuda.Stream(cuda1)
+    side.wait_stream(torch.cuda.current_stream(cuda1))
+    with torch.cuda.stream(side):
+        got = attention.attention(q, k, v, 40 ** -0.5)
+        pasted = blend.make_masked_paste_fn(S, Ho, Wo, H, W)(pred, frames, idxs, *planes)
+    torch.cuda.synchronize(cuda1)
+    assert (attention.attention.launches, blend.blend_masked_.launches) == (
+        launches[0] + 1, launches[1] + 1)
+    assert got.device == cuda1 and pasted.device == cuda1
+    want = attention.attention_plain(q, k, v, 40 ** -0.5)
+    assert float((got.float() - want.float()).abs().max()) <= atol
+    plain = blend.masked_paste_plain(pred, frames, idxs, *planes, S=S, Ho=Ho, Wo=Wo, H=H, W=W)
+    assert int((pasted.int() - plain.int()).abs().max()) <= 1

@@ -12,6 +12,7 @@ import torch
 
 from livetalking_tpu.ops import mel as jmel
 from livetalking_tpu_torch.ops import mel as tmel
+from test_torch_whisper_decoder import torch_one_thread  # noqa: F401
 
 ATOL = 2e-3
 

@@ -34,6 +34,7 @@ from livetalking_tpu_torch.models import whisper_encoder as twe
 from livetalking_tpu_torch.ops import blend as tb
 from livetalking_tpu_torch.utils import synthetic
 from test_sd_converters import TorchUNet, TorchVAE, _init
+from test_torch_whisper_decoder import torch_one_thread  # noqa: F401
 
 VAE_ATOL = 2e-3
 TINY = dict(block_out=(32, 64, 96, 96), heads=2)
@@ -78,6 +79,13 @@ def unet():
     return jp, tu.params_from_jax(_np_tree(jp))
 
 
+@pytest.fixture(scope="module")
+def jstep():
+    """The JAX package's B=2 step, compiled once for the two tests that run
+    it on (3, 32, 32, 8) latent cycles."""
+    return jm.make_infer_fn(ju.UNetConfig(**TINY), 2, dtype=jnp.float32)
+
+
 def test_vae_encode_and_decode_match_jax(vae, rng):
     jp, tp, _ = vae
     x = rng.standard_normal((1, 64, 64, 3)).astype(np.float32).clip(-1, 1)
@@ -113,29 +121,35 @@ def test_positional_encoding_table_matches_jax():
                                   jm.positional_encoding_table(50, 384))
 
 
-def test_step_f32_matches_jax(vae, unet, rng):
-    """``make_infer_fn`` at B=1, tiny U-Net, full VAE: gather, PE, U-Net at
+def test_step_f32_matches_jax(vae, unet, rng, jstep):
+    """``make_infer_fn`` at B=2, tiny U-Net, full VAE: gather, PE, U-Net at
     t=0, decode, uint8 BGR."""
     (jvp, tvp, _), (jup, tup) = vae, unet
     lat = rng.standard_normal((3, 32, 32, 8)).astype(np.float32)
-    wh = rng.standard_normal((1, 50, 384)).astype(np.float32)
-    idxs = np.asarray([2], np.int32)
-    want = np.asarray(jm.make_infer_fn(ju.UNetConfig(**TINY), 1, dtype=jnp.float32)(
-        jup, jvp, jnp.asarray(lat), jnp.asarray(idxs), jnp.asarray(wh)))
-    got = tm.make_infer_fn(tu.UNetConfig(**TINY), 1, dtype=torch.float32)(
+    wh = rng.standard_normal((2, 50, 384)).astype(np.float32)
+    idxs = np.asarray([2, 0], np.int32)
+    want = np.asarray(jstep(jup, jvp, jnp.asarray(lat), jnp.asarray(idxs), jnp.asarray(wh)))
+    got = tm.make_infer_fn(tu.UNetConfig(**TINY), 2, dtype=torch.float32)(
         tup, tvp, torch.from_numpy(lat), torch.from_numpy(idxs), torch.from_numpy(wh))
-    assert got.dtype == torch.uint8 and tuple(got.shape) == (1, 256, 256, 3)
+    assert got.dtype == torch.uint8 and tuple(got.shape) == (2, 256, 256, 3)
     assert np.abs(got.numpy().astype(int) - want.astype(int)).max() <= 1
     assert 0.1 < float(((want > 0) & (want < 255)).mean())  # not a saturated image
 
 
-def test_avatar_latents_match_jax(vae):
+@pytest.fixture(scope="module")
+def slice_avatar(vae):
+    """A two-frame synthetic avatar encoded by the port's VAE (once: four
+    256 px encodes at full width)."""
+    a = synthetic.musetalk_avatar_arrays(n_frames=2, seed=5)
+    return a, plugin.avatar_from_arrays("lat", a["frames"], a["faces"], a["coords"],
+                                        a["mask_coords"], a["masks"], vae[1], device="cpu")
+
+
+def test_avatar_latents_match_jax(vae, slice_avatar):
     """``avatar_from_arrays`` encodes the faces with the port's VAE as the
     JAX package's ``encode_avatar_latents`` does."""
     jp, tp, _ = vae
-    a = synthetic.musetalk_avatar_arrays(n_frames=2, seed=5)
-    avatar = plugin.avatar_from_arrays("lat", a["frames"], a["faces"], a["coords"],
-                                       a["mask_coords"], a["masks"], tp, device="cpu")
+    a, avatar = slice_avatar
     want = jm.encode_avatar_latents(jp, a["faces"])
     assert avatar["latent_cycle_host"].shape == want.shape == (2, 32, 32, 8)
     np.testing.assert_allclose(avatar["latent_cycle_host"], want, atol=VAE_ATOL)
@@ -143,17 +157,16 @@ def test_avatar_latents_match_jax(vae):
                        torch.from_numpy(avatar["latent_cycle_host"]))
 
 
-def test_whole_slice_matches_jax(vae, unet, rng):
+def test_whole_slice_matches_jax(vae, unet, rng, jstep, slice_avatar):
     """PCM -> Whisper features (30 s window) -> step at B=2 -> masked
     paste-back onto the avatar's full frames, against the JAX chain."""
     (jvp, tvp, _), (jup, tup) = vae, unet
     jwp = jwe.init_params(jax.random.PRNGKey(0), jwe.TINY, jnp.float32)
     twp = twe.params_from_jax(_np_tree(jwp))
     B, l, r = 2, 10, 10
-    a = synthetic.musetalk_avatar_arrays(n_frames=3, seed=6)
-    avatar = plugin.avatar_from_arrays("slice", a["frames"], a["faces"], a["coords"],
-                                       a["mask_coords"], a["masks"], tvp, device="cpu")
-    lat = avatar["latent_cycle_host"]
+    a, avatar = slice_avatar
+    # three rows, the shape the shared JAX step was compiled for
+    lat = np.concatenate([avatar["latent_cycle_host"], avatar["latent_cycle_host"][:1]])
     frames = np.stack(a["frames"])
     Ho, Wo = tb.bucket_shape([(ys, ye, xs, xe) for (xs, ys, xe, ye) in a["mask_coords"]])
     planes = tb.prepare_masked_paste_data(a["coords"], a["mask_coords"], a["masks"], Ho, Wo,
@@ -163,11 +176,10 @@ def test_whole_slice_matches_jax(vae, unet, rng):
     t = np.arange(n) / 16000
     pcm = (0.3 * np.sin(2 * np.pi * 220 * t) * np.sin(2 * np.pi * 3 * t)
            + 0.02 * rng.standard_normal(n)).astype(np.float32)[None]
-    idxs = np.asarray([1, 2], np.int32)
+    idxs = np.asarray([1, 0], np.int32)
 
     jfeat = jf(1)(pcm)[0]
-    jface = jm.make_infer_fn(ju.UNetConfig(**TINY), B, dtype=jnp.float32)(
-        jup, jvp, jnp.asarray(lat), jnp.asarray(idxs), jfeat)
+    jface = jstep(jup, jvp, jnp.asarray(lat), jnp.asarray(idxs), jfeat)
     want = np.asarray(jpb.make_masked_paste_fn(256, Ho, Wo, 480, 640, use_pallas=False)(
         jface, jnp.asarray(frames), jnp.asarray(idxs), *(jnp.asarray(p) for p in planes)))
 

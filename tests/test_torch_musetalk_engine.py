@@ -28,6 +28,7 @@ from livetalking_tpu_torch.ops import attention, blend
 from livetalking_tpu_torch.utils import synthetic
 from livetalking_tpu_torch.utils.image import mirror_indices
 from test_sd_converters import TorchVAE, _init
+from test_torch_whisper_decoder import torch_one_thread  # noqa: F401
 
 H, W = 480, 640
 
@@ -82,7 +83,7 @@ def test_two_coalesced_musetalk_sessions_stream_full_frames(model):
         for t in threads:
             t.start()
         for k, s in enumerate(sessions):
-            s.put_msg_txt(f"musetalk engine test {k}")
+            s.put_msg_txt(f"hi {k}")
         speech = [0, 0]
         deadline = time.time() + 150
         while time.time() < deadline:

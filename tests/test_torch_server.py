@@ -20,6 +20,7 @@ from livetalking_tpu.utils.synthetic import make_synthetic_avatar
 from livetalking_tpu_torch import app as appmod
 from livetalking_tpu_torch.config import default_opt
 from livetalking_tpu_torch.server.session_manager import session_manager
+from test_torch_whisper_decoder import torch_one_thread  # noqa: F401
 
 
 def _free_port() -> int:

@@ -28,6 +28,7 @@ from livetalking_tpu_torch.engine.scheduler import AvatarStore
 from livetalking_tpu_torch.ops import mel as tmel
 from livetalking_tpu_torch.ops.blend import bucket_shape
 from tests.test_torch_wav2lip import shared_weights
+from test_torch_whisper_decoder import torch_one_thread  # noqa: F401
 
 S, H, W = 256, 480, 640
 BAR_LSB = 2

@@ -21,6 +21,7 @@ from livetalking_tpu.ops import pallas_attention as jpa
 from livetalking_tpu_torch.models import diffusion_blocks as tdb
 from livetalking_tpu_torch.ops import attention as tpa
 from livetalking_tpu_torch.ops import blend, conv
+from test_torch_whisper_decoder import torch_one_thread  # noqa: F401
 
 SHAPES = [(2, 2, 64, 40), (1, 1, 64, 64)]
 

@@ -5,7 +5,7 @@ continuing a run bit for bit (2 + 2 steps give the 4-step run's weights
 and metrics), ``--init`` and ``--sync_init`` reading trees in the JAX
 package's layout (written here with numpy from its inits, without its
 CLI) and in the port's own, ``--mesh`` and ``--device cuda`` without a
-card raising.
+card raising (``--mesh`` itself: tests/test_torch_parallel.py).
 """
 
 import os
@@ -38,10 +38,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BASE = ["--synthetic", "8", "--size", "tiny", "--device", "cpu", "--log_every", "1"]
 
 
-def check_family_run(tmp_path, family, recipe, batch):
+def check_family_run(tmp_path, family, recipe, batch, extra=()):
     out = str(tmp_path / "w.pkl")
     m = cli.main(["--family", family, "--recipe", recipe, "--steps", "1", "--batch_size",
-                  str(batch), "--out", out] + BASE)
+                  str(batch), "--out", out] + BASE + list(extra))
     assert m and all(np.isfinite(v) for v in m.values())
     tree, port = load_params(out)
     assert port and load_pytree(out)["format"] == PORT_FORMAT
@@ -112,12 +112,16 @@ def test_sync_init_enables_the_sync_term(tmp_path):
 
 
 def test_mesh_and_cuda_without_a_card_raise():
-    with pytest.raises(SystemExit, match="ROADMAP item 19"):
-        cli.main(["--family", "ultralight", "--mesh", "dp4"] + BASE)
+    """``--mesh`` asks for one card per rank, as ``--device cuda`` asks for
+    one: without a card both raise before any work (nothing falls back to
+    the CPU; ``--device cpu`` asks for gloo ranks)."""
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device")
+    args = ["--family", "ultralight", "--synthetic", "8", "--size", "tiny"]
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        cli.main(["--family", "ultralight", "--synthetic", "8", "--size", "tiny"])
+        cli.main(args + ["--mesh", "dp=2"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(args)
 
 
 def test_module_entry_point_parses_its_flags():

@@ -17,6 +17,7 @@ import torch
 from livetalking_tpu.train import musetalk_train as jmt
 from livetalking_tpu_torch.train import musetalk_train as tmt
 from livetalking_tpu_torch.train import optim
+from test_torch_whisper_decoder import torch_one_thread  # noqa: F401
 
 CASES = {
     "generator": (lambda: optax.adamw(jmt.make_schedule(1e-3, 2, 6), b1=0.9, b2=0.999,

@@ -22,6 +22,7 @@ from livetalking_tpu_torch.avatars import ultralight_avatar as tua
 from livetalking_tpu_torch.models import ultralight as tul
 from livetalking_tpu_torch.utils import synthetic
 from test_ultralight import TorchUltralight
+from test_torch_whisper_decoder import torch_one_thread  # noqa: F401
 
 FWD_ATOL = 5e-4
 B = 2

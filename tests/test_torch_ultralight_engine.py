@@ -26,6 +26,7 @@ from livetalking_tpu_torch.engine.scheduler import SchedulerConfigError
 from livetalking_tpu_torch.models import ultralight as ul
 from livetalking_tpu_torch.ops import blend
 from livetalking_tpu_torch.utils import synthetic
+from test_torch_whisper_decoder import torch_one_thread  # noqa: F401
 
 H, W, B = 480, 640, 2
 

@@ -20,6 +20,7 @@ import torch
 from livetalking_tpu.models import wav2lip as jw
 from livetalking_tpu_torch.models import layers as tl
 from livetalking_tpu_torch.models import wav2lip as tw
+from test_torch_whisper_decoder import torch_one_thread  # noqa: F401
 
 FWD_ATOL = 2e-4
 S = 256

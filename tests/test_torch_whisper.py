@@ -24,6 +24,7 @@ from livetalking_tpu_torch.audio_features import whisper_features as twf
 from livetalking_tpu_torch.engine.feature_coalescer import FeatureCoalescer
 from livetalking_tpu_torch.models import whisper_encoder as twe
 from livetalking_tpu_torch.ops import whisper_mel as twm
+from test_torch_whisper_decoder import torch_one_thread  # noqa: F401
 
 MEL_ATOL = 2e-5   # f32 STFT + filterbank in two libraries' summation orders
 ENC_ATOL = 2e-4   # tests/test_whisper.py's bar for the encoder against HF
