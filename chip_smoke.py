@@ -11,7 +11,9 @@ Whisper-tiny) in bf16 and in W8A8 int8, and the HuBERT-fed families
 speech-to-text path (Whisper-tiny, ``/api/asr``) and the avatar builds
 (S3FD, BiSeNet, PFLD, the task manager), training, and the multi-device
 path (the sharded MuseTalk step, the scheduler driving it on every rank,
-``--mesh`` training) with ``--profile_dir``'s trace.
+``--mesh`` training) with ``--profile_dir``'s trace; last the host edge
+(RTMP, recording, a TTS provider, WebRTC and the virtual camera where their
+modules are installed).
 
   1. device     — ``nvidia-smi`` name and power limit; compute capability 9.0.
   2. build      — every kernel under ``livetalking_tpu_torch/csrc``, one nvcc
@@ -147,7 +149,22 @@ path (the sharded MuseTalk step, the scheduler driving it on every rank,
                   around one composed MuseTalk step (tiny U-Net, full VAE,
                   bf16, B=16, the masked paste): the trace it writes holds
                   kernel 3's and kernel 2's CUDA events.
- 24. paced      — only with ``--paced``: MuseTalk sessions whose frames are
+ 24. transports — the host edge on the main path: ``--model wav2lip --coalesce
+                  --device_paste_back`` at full width, session 0 booted as for
+                  ``--transport rtmp`` (a local ``.flv``, no server), ``--tts
+                  cosyvoice`` from a local stand-in (10 s of speech through
+                  ``stream_pcm16``), ``/human``, ``/record`` start and end and
+                  ``GET /record/0`` through ``app.build_web_app()``: kernel 1
+                  launches, ``start`` then ``end``, the audio of the mp4 and
+                  the flv within 2% of the PCM pushed; the encoder, frame
+                  size, frames muxed, egress fps and ``write_video``'s host ms
+                  and share of the compose thread. WebRTC (a loopback to
+                  ``/offer``) and the virtual camera where ``aiortc``/``av``
+                  and ``pyvirtualcam`` import, else ``skipped=``; without
+                  ``pkg-config`` or the ffmpeg development libraries the native
+                  module is ``skipped=`` with its build error and recording
+                  takes the ffmpeg CLI, if there is one.
+ 25. paced      — only with ``--paced``: MuseTalk sessions whose frames are
                   taken at 25 fps, started 160 ms apart, with the shared
                   Whisper feature coalescer and without it (with, without,
                   without, with); speech frames/s, starved ticks, requests
@@ -1810,18 +1827,17 @@ def count_syncs(torch, fn):
     return out, sum(sites.values()), dict(sites)
 
 
-def asr_roundtrip(app, pcm: np.ndarray) -> tuple:
-    """``/api/asr`` through ``app.build_web_app()`` (the port's
-    ``setup_routes``) on a local aiohttp server: JSON config, PCM16 chunks,
-    ``is_speaking: false``; (the one reply, its ms from the last chunk)."""
+@contextlib.contextmanager
+def serve_app(web_app):
+    """``web_app`` on 127.0.0.1 at a free port, served from its own event loop
+    in a thread; yields the base URL, cleans up on exit."""
     import threading
 
-    import aiohttp
     from aiohttp import web
 
     port = free_port()
     loop = asyncio.new_event_loop()
-    runner = web.AppRunner(app.build_web_app())
+    runner = web.AppRunner(web_app)
     started = threading.Event()
 
     def serve():
@@ -1835,10 +1851,23 @@ def asr_roundtrip(app, pcm: np.ndarray) -> tuple:
     thread.start()
     if not started.wait(30):
         raise AssertionError("the aiohttp server did not start")
+    try:
+        yield f"http://127.0.0.1:{port}"
+    finally:
+        asyncio.run_coroutine_threadsafe(runner.cleanup(), loop).result(30)
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(30)
 
-    async def client():
+
+def asr_roundtrip(app, pcm: np.ndarray) -> tuple:
+    """``/api/asr`` through ``app.build_web_app()`` (the port's
+    ``setup_routes``) on a local aiohttp server: JSON config, PCM16 chunks,
+    ``is_speaking: false``; (the one reply, its ms from the last chunk)."""
+    import aiohttp
+
+    async def client(base):
         async with aiohttp.ClientSession() as sess:
-            async with sess.ws_connect(f"http://127.0.0.1:{port}/api/asr") as ws:
+            async with sess.ws_connect(f"{base}/api/asr") as ws:
                 await ws.send_str(json.dumps({"chunk_size": [5, 10, 5], "wav_name": "smoke",
                                               "is_speaking": True, "mode": "2pass",
                                               "itn": True}))
@@ -1856,12 +1885,8 @@ def asr_roundtrip(app, pcm: np.ndarray) -> tuple:
                     raise AssertionError(f"a second reply: {extra.data}")
                 return json.loads(msg.data), ms
 
-    try:
-        return asyncio.run(client())
-    finally:
-        asyncio.run_coroutine_threadsafe(runner.cleanup(), loop).result(30)
-        loop.call_soon_threadsafe(loop.stop)
-        thread.join(30)
+    with serve_app(app.build_web_app()) as base:
+        return asyncio.run(client(base))
 
 
 def phase_stt(torch, app, asr_server, wd, we, textnorm) -> dict:
@@ -2704,6 +2729,369 @@ def phase_profile_dir(torch, app, muse, attention, blend) -> dict:
         raise AssertionError(f"--profile_dir trace lacks the hand-written kernels: {ours}")
     return ours
 
+TRANSPORT_AUDIO_TOL = 0.02  # decoded audio against the PCM the compose loop pushed: count, RMS
+
+
+def speech_pcm24k(seconds: float, seed: int = 21) -> bytes:
+    """A voice-like int16 stream at 24 kHz (a TTS server's rate): a gliding
+    140-160 Hz fundamental and its third partial under a 3.5 Hz syllable
+    envelope, a little noise."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(24000 * seconds)) / 24000
+    phase = 2 * np.pi * np.cumsum(150 + 10 * np.sin(2 * np.pi * 0.5 * t)) / 24000
+    env = 0.55 + 0.45 * np.sin(2 * np.pi * 3.5 * t)
+    x = env * (0.5 * np.sin(phase) + 0.25 * np.sin(3 * phase)) + 0.01 * rng.standard_normal(t.size)
+    return (x * 12000).astype("<i2").tobytes()
+
+
+@contextlib.contextmanager
+def cosyvoice_stand_in(pcm: bytes):
+    """The CosyVoice server's zero-shot endpoint on 127.0.0.1 (the card
+    machine has no network): ``GET /inference_zero_shot`` streams ``pcm``
+    (int16, 24 kHz) in 9600-byte chunks, as the provider does."""
+    from aiohttp import web
+
+    async def zero_shot(request):
+        resp = web.StreamResponse(status=200)
+        await resp.prepare(request)
+        for i in range(0, len(pcm), 9600):
+            await resp.write(pcm[i:i + 9600])
+        await resp.write_eof()
+        return resp
+
+    web_app = web.Application()
+    web_app.router.add_route("GET", "/inference_zero_shot", zero_shot)
+    with serve_app(web_app) as base:
+        yield base
+
+
+class EgressProbe:
+    """Host times of the compose thread's egress for one session: each
+    ``push_video_frame`` (entry, exit), each ``AVMuxer.write_video`` of the
+    transport's muxer and of the recorder's, and the PCM pushed to the
+    transport and to the recorder."""
+
+    def __init__(self, session, native):
+        self.pushes, self.writes, self.rec_writes = [], [], []
+        self.audio, self.recorded = [], []
+        self._native, self._write = native, native.AVMuxer.write_video
+        out, probe = session.output, self
+        push_video, push_audio = out.push_video_frame, out.push_audio_frame
+        record_audio = session.record_audio_data
+
+        def timed_push(frame):
+            t0 = time.perf_counter()
+            push_video(frame)
+            probe.pushes.append((t0, time.perf_counter()))
+
+        def kept_audio(frame, eventpoint=None):
+            probe.audio.append(np.array(frame, np.int16))
+            push_audio(frame, eventpoint)
+
+        def kept_record(frame):
+            with session._record_lock:
+                on = session.recording
+            record_audio(frame)
+            if on:
+                probe.recorded.append(np.array(frame, np.int16))
+
+        def timed_write(muxer, frame):
+            t0 = time.perf_counter()
+            probe._write(muxer, frame)
+            kept = probe.writes if muxer is out._muxer else probe.rec_writes
+            kept.append((t0, time.perf_counter()))
+
+        out.push_video_frame, out.push_audio_frame = timed_push, kept_audio
+        session.record_audio_data = kept_record
+        native.AVMuxer.write_video = timed_write
+
+    def restore(self) -> None:
+        self._native.AVMuxer.write_video = self._write
+
+    def summary(self, fps: int) -> dict:
+        """Frames muxed, egress fps between the first and the last write, the
+        median ``write_video`` ms, the compose thread's busy ms per frame (the
+        interval between two pushes less the transport's pacing sleep) and
+        the transport muxer's share of it (the recorder's encode, while it
+        records, is part of the busy time)."""
+        n = len(self.writes)
+        if n < 2:
+            return {"frames_muxed": n}
+        write = np.array([b - a for a, b in self.writes]) * 1e3
+        rec = np.array([b - a for a, b in self.rec_writes] or [np.nan]) * 1e3
+        push = np.array([b - a for a, b in self.pushes]) * 1e3
+        enter = np.array([a for a, _ in self.pushes]) * 1e3
+        # the pushes that muxed are the last n (the muxer opens on the first)
+        sleep = push[-n:] - write
+        busy = np.diff(enter[-n:]) - sleep[:-1]
+        return {"frames_muxed": n,
+                "egress_fps": (n - 1) / (self.writes[-1][0] - self.writes[0][0]),
+                "write_ms_p50": float(np.median(write)),
+                "write_ms_p90": float(np.percentile(write, 90)),
+                "record_write_ms_p50": float(np.median(rec)),
+                "frames_recorded": len(self.rec_writes),
+                "compose_busy_ms_p50": float(np.median(busy)),
+                "write_share_of_busy": float(write[1:].sum() / busy.sum()),
+                "write_share_of_period": float(np.median(write) * fps / 1e3)}
+
+
+def audio_within(tag: str, got: np.ndarray, pushed: list) -> dict:
+    """``got`` (decoded, float) against the int16 frames pushed: sample count
+    and RMS within ``TRANSPORT_AUDIO_TOL``."""
+    want = np.concatenate(pushed).astype(np.float64) / 32767
+    rms_got, rms_want = float(np.sqrt(np.mean(got.astype(np.float64) ** 2))), float(
+        np.sqrt(np.mean(want ** 2)))
+    r = {"samples": int(got.shape[0]), "pushed": int(want.shape[0]),
+         "count_err": abs(got.shape[0] - want.shape[0]) / want.shape[0],
+         "rms_err": abs(rms_got - rms_want) / rms_want}
+    if r["count_err"] > TRANSPORT_AUDIO_TOL or r["rms_err"] > TRANSPORT_AUDIO_TOL:
+        raise AssertionError(f"{tag}: decoded audio {r} is not within {TRANSPORT_AUDIO_TOL} "
+                             "of the PCM the compose loop pushed")
+    return r
+
+
+def webrtc_loopback(base: str, n_video: int = 100) -> dict:
+    """A client ``RTCPeerConnection`` posts its offer to the port's ``/offer``,
+    receives both tracks and pulls ``n_video`` video frames (after the first,
+    which waits for the render pipeline), audio frames alongside."""
+    import aiohttp
+    from aiortc import RTCPeerConnection, RTCSessionDescription
+
+    async def run():
+        pc = RTCPeerConnection()
+        pc.addTransceiver("video", direction="recvonly")
+        pc.addTransceiver("audio", direction="recvonly")
+        tracks, both = {}, asyncio.Event()
+
+        @pc.on("track")
+        def on_track(track):
+            tracks[track.kind] = track
+            if len(tracks) == 2:
+                both.set()
+
+        await pc.setLocalDescription(await pc.createOffer())
+        async with aiohttp.ClientSession() as http:
+            async with http.post(f"{base}/offer", json={"sdp": pc.localDescription.sdp,
+                                                        "type": pc.localDescription.type}) as r:
+                answer = await r.json()
+        if "sdp" not in answer:
+            raise AssertionError(f"/offer answered {answer}")
+        await pc.setRemoteDescription(RTCSessionDescription(sdp=answer["sdp"],
+                                                            type=answer["type"]))
+        await asyncio.wait_for(both.wait(), 30)
+        audio = [0]
+
+        async def pull_audio():
+            while True:
+                await tracks["audio"].recv()
+                audio[0] += 1
+
+        puller = asyncio.ensure_future(pull_audio())
+        await asyncio.wait_for(tracks["video"].recv(), 120)
+        t0 = time.perf_counter()
+        for _ in range(n_video):
+            await asyncio.wait_for(tracks["video"].recv(), 10)
+        fps = n_video / (time.perf_counter() - t0)
+        puller.cancel()
+        with contextlib.suppress(asyncio.CancelledError):
+            await puller
+        await pc.close()
+        return {"video_fps": fps, "audio_frames": audio[0], "sessionid": answer["sessionid"]}
+
+    return asyncio.run(run())
+
+
+def virtualcam_rate(opt, frame: np.ndarray, n: int = 50) -> float:
+    """``n`` frames through the ``virtualcam`` output plugin, imported by
+    name as the session's plugin loader imports it (``pyvirtualcam`` is
+    gated); the camera's paced frames per second."""
+    import importlib
+
+    from livetalking_tpu_torch.streamout import OUTPUT_MODULES
+
+    vc = importlib.import_module(OUTPUT_MODULES["virtualcam"])
+    cam = vc.VirtualCamOutput(opt=opt, parent=None)
+    cam.start()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        cam.push_video_frame(frame.copy())
+    fps = n / (time.perf_counter() - t0)
+    cam.stop()
+    return fps
+
+
+def phase_transports(torch, app, plugin, blend, native, session_manager,
+                     device: str = "cuda") -> dict:
+    """The host edge on the main path: ``--model wav2lip --coalesce
+    --device_paste_back`` at full width on the synthetic 480x640 avatar,
+    ``--transport rtmp`` to a local ``.flv`` (the ``flv`` format, no server),
+    ``--tts cosyvoice`` served by a local stand-in (10 s of speech through
+    ``stream_pcm16``). Session 0 is booted as ``main()`` does for rtmp;
+    ``/human``, ``/record`` and ``GET /record/0`` go through
+    ``app.build_web_app()``. Kernel 1's count must rise, ``start`` and
+    ``end`` arrive in order, and the audio decoded from the mp4 and the flv
+    is within 2% of the PCM pushed. Prints the encoder, frame size, frames
+    muxed, egress fps, ``write_video``'s host ms and share of the compose
+    thread's time. Then WebRTC (an in-process loopback to ``/offer``) and
+    the virtual camera, where ``aiortc``/``av`` and ``pyvirtualcam`` import;
+    else a ``skipped=`` line each. The native module may be missing only
+    for want of ``pkg-config`` or the ffmpeg development libraries (then
+    recording takes the ffmpeg CLI, if there is one)."""
+    import importlib.util
+    import shutil
+    import tempfile
+
+    import requests
+
+    from livetalking_tpu_torch.config import default_opt
+    from livetalking_tpu_torch.utils.audio import load_pcm16k
+
+    card = json.dumps(smi("name,power.limit") if device == "cuda" else "cpu")
+    libs = bool(shutil.which("pkg-config")) and subprocess.run(
+        ["pkg-config", "--exists", *native.FFMPEG_LIBS]).returncode == 0
+    if libs:
+        native.get_lib()  # everything it needs is here: a failed build fails the phase
+        encoder, recorder = native.video_encoder_name(), "native"
+        log("transports_native", lib=native.get_lib()._name, video_encoder=encoder,
+            frame_size=f"{W}x{H}", card=card)
+    else:
+        try:
+            native.build()
+        except (OSError, RuntimeError, subprocess.CalledProcessError) as e:
+            error = f"{type(e).__name__}: {e}"
+        else:
+            raise AssertionError("avmux built without pkg-config's ffmpeg libraries")
+        encoder, recorder = None, ("ffmpeg" if shutil.which("ffmpeg") else None)
+        log("transports_native", skipped=json.dumps(
+            "no pkg-config or ffmpeg development libraries: " + " ".join(error.split())[:300]),
+            recording=recorder or "skipped (no ffmpeg CLI either)")
+    decode = native.decode_audio_bytes if recorder == "native" else load_pcm16k
+
+    tmp = tempfile.mkdtemp(prefix="smoke_transports_")
+    cwd = os.getcwd()
+    os.chdir(tmp)  # the recording lands in ./data/record/0.mp4
+    probe = None
+    try:
+        ref = os.path.join(tmp, "prompt.wav")
+        with wave.open(ref, "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(16000)
+            w.writeframes((np.sin(np.arange(8000) * 0.2) * 8000).astype("<i2").tobytes())
+        flv = os.path.join(tmp, "live.flv")
+        app.global_avatars["smoke_t"] = make_avatar(plugin, "smoke_t", 8, 12, device)
+        with cosyvoice_stand_in(speech_pcm24k(10.0)) as tts_url:
+            opt = default_opt(model="wav2lip", transport="rtmp", push_url=flv, tts="cosyvoice",
+                              TTS_SERVER=tts_url, REF_FILE=ref, REF_TEXT="prompt",
+                              coalesce=True, device_paste_back=True, batch_size=16,
+                              device=device, avatar_id="smoke_t", max_session=2, modelfile="",
+                              stun="")
+            app.load_plugin_stack(opt)
+            session = app.build_avatar_session("0", {})
+            session_manager.add_session("0", session)
+            if type(session.output).__name__ != "RTMPOutput" or session.tts is None:
+                raise AssertionError(f"session 0: output {session.output}, tts {session.tts}")
+            probe = EgressProbe(session, native)
+            events = queue.Queue()
+            session.add_msgqueue(events)
+            # the main path starts here: the kernel count from 0
+            blend.blend_rect_.launches = 0
+            t0 = time.time()
+            app.start_render_thread("0")
+            with serve_app(app.build_web_app()) as base:
+                while len(probe.pushes) < 25 and time.time() - t0 < 120:
+                    time.sleep(0.05)
+                if recorder:
+                    r = requests.post(f"{base}/record", json={"sessionid": "0",
+                                                              "type": "start_record"}).json()
+                    if r != {"code": 0, "msg": "ok"}:
+                        raise AssertionError(f"/record start_record: {r}")
+                r = requests.post(f"{base}/human", json={
+                    "sessionid": "0", "type": "echo", "text": "the smoke test speaks."}).json()
+                if r != {"code": 0, "msg": "ok"}:
+                    raise AssertionError(f"/human: {r}")
+                statuses, deadline = [], time.time() + 120
+                while "end" not in statuses and time.time() < deadline:
+                    with contextlib.suppress(queue.Empty):
+                        statuses.append(json.loads(events.get(timeout=1))["status"])
+                if statuses != ["start", "end"]:
+                    raise AssertionError(f"eventpoints {statuses}, want start then end")
+                time.sleep(0.5)  # a few ticks of silence after the utterance
+                record = None
+                if recorder:
+                    r = requests.post(f"{base}/record", json={"sessionid": "0",
+                                                              "type": "end_record"}).json()
+                    if r != {"code": 0, "msg": "ok"}:
+                        raise AssertionError(f"/record end_record: {r}")
+                    got = requests.get(f"{base}/record/0", timeout=60)
+                    if got.status_code != 200 or got.content[4:8] != b"ftyp":
+                        raise AssertionError(f"GET /record/0: {got.status_code}, "
+                                             f"{got.content[:16]!r}")
+                    record = audio_within("record", decode(got.content), probe.recorded)
+                elif requests.get(f"{base}/record/0", timeout=60).status_code != 404:
+                    raise AssertionError("GET /record/0 without a recording must be 404")
+                if not app.stop_render_thread("0", timeout=30):
+                    raise AssertionError("session 0's render thread did not stop")
+                session_manager.remove_session("0")
+                launches = blend.blend_rect_.launches
+                if launches == 0 and device == "cuda":  # the CPU runs its plain version
+                    raise AssertionError("kernel 1 never launched during the transports phase")
+                spoke_s = time.time() - t0
+                egress = probe.summary(opt.fps)
+                size = f"{W}x{H}"
+                if recorder == "native":
+                    with open(flv, "rb") as fh:
+                        flv_audio = audio_within("flv", decode(fh.read()), probe.audio)
+                    log("transports", video_encoder=encoder, frame_size=size,
+                        frames_muxed=egress["frames_muxed"],
+                        rtmp_egress_fps=f"{egress['egress_fps']:.2f}",
+                        write_video_ms_p50=f"{egress['write_ms_p50']:.3f}",
+                        write_video_ms_p90=f"{egress['write_ms_p90']:.3f}",
+                        frames_recorded=egress["frames_recorded"],
+                        record_write_video_ms_p50=f"{egress['record_write_ms_p50']:.3f}",
+                        compose_busy_ms_p50=f"{egress['compose_busy_ms_p50']:.3f}",
+                        write_share_of_compose=f"{egress['write_share_of_busy']:.3f}",
+                        write_share_of_40ms=f"{egress['write_share_of_period']:.3f}",
+                        card=card)
+                    log("transports_audio", flv=json.dumps(flv_audio), record=json.dumps(record),
+                        tol=TRANSPORT_AUDIO_TOL, card=card)
+                else:
+                    log("transports", video_encoder="skipped (no native muxer)", frame_size=size,
+                        frames_muxed=egress["frames_muxed"], frames_composed=len(probe.pushes),
+                        rtmp_egress_fps="not measured (no muxer)",
+                        write_video_ms="not measured (no muxer)",
+                        record=json.dumps(record), card=card)
+                log("transports", kernel1_launches=launches, eventpoints=statuses,
+                    tts="cosyvoice (stand-in, 10 s at 24 kHz)", seconds=f"{spoke_s:.1f}",
+                    card=card)
+
+                missing = [m for m in ("aiortc", "av") if importlib.util.find_spec(m) is None]
+                if missing:
+                    log("transports_webrtc", skipped=f"missing module(s): {','.join(missing)}")
+                else:
+                    app.opt.transport = "webrtc"  # the /offer session's output
+                    rtc = webrtc_loopback(base)
+                    deadline = time.time() + 30
+                    while session_manager.has_session(rtc["sessionid"]) and time.time() < deadline:
+                        time.sleep(0.1)
+                    if session_manager.has_session(rtc["sessionid"]):
+                        raise AssertionError("the /offer session outlived its peer connection")
+                    log("transports_webrtc", received_video_fps=f"{rtc['video_fps']:.2f}",
+                        audio_frames=rtc["audio_frames"], card=card)
+        if importlib.util.find_spec("pyvirtualcam") is None:
+            log("transports_virtualcam", skipped="missing module: pyvirtualcam")
+        else:
+            fps = virtualcam_rate(opt, app.global_avatars["smoke_t"]["frame_list_cycle"][0])
+            log("transports_virtualcam", camera_fps=f"{fps:.2f}", card=card)
+        return {"launches": launches, "egress": egress}
+    finally:
+        if probe is not None:
+            probe.restore()
+        plugin.reset_shared_scheduler()
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main(argv) -> int:
     import argparse
 
@@ -2718,7 +3106,7 @@ def main(argv) -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from livetalking_tpu_torch import app
+    from livetalking_tpu_torch import app, native
     from livetalking_tpu_torch.audio_features import hubert_features
     from livetalking_tpu_torch.audio_features import whisper_features as wf
     from livetalking_tpu_torch.avatars import ernerf_avatar as ea
@@ -2802,6 +3190,8 @@ def main(argv) -> int:
     tr = timed("train", phase_train, torch, attention, peak_bw, peak_f32, peak_bf16 / 2)
     mg = timed("multigpu", phase_multigpu, torch)
     timed("profile_dir", phase_profile_dir, torch, app, muse, attention, blend)
+    tp = timed("transports", phase_transports, torch, app, plugin, blend, native,
+               session_manager)
     if paced:
         timed("paced", phase_paced_ab, torch, app, muse, synthetic, sd_vae, session_manager,
               paced)
@@ -2827,8 +3217,10 @@ def main(argv) -> int:
         {**row("blend", src + "blend.cu", "livetalking_tpu/ops/pallas_blend.py:116",
                e["launches"], max(b["max_abs_err"], b168["max_abs_err"]),
                paste_row(b["rows"][(H, W, 128, 400)]), None),
-         # the Ultralight path's own run of kernel 1 (S = 168, B=128, 400-frame store)
-         "ultralight_launches": ue["launches"], "s168_ms": s168["paste_ms"],
+         # the Ultralight path's own run of kernel 1 (S = 168, B=128, 400-frame store),
+         # and the transports phase's (wav2lip through --transport rtmp)
+         "ultralight_launches": ue["launches"], "transports_launches": tp["launches"],
+         "s168_ms": s168["paste_ms"],
          "s168_device_ms": s168["paste_device_ms"], "s168_plain_ms": s168["plain_ms"],
          "s168_bound_ms": s168["paste_bound_ms"], "s168_bound_by": s168["paste_bound_by"]},
         {**row("blend_mask", src + "blend.cu", "livetalking_tpu/ops/pallas_blend.py:141",

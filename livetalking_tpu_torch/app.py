@@ -4,15 +4,19 @@ livetalking_tpu/app.py).
 Parse config, check the device (``--device cuda``, the default, raises
 when no CUDA device is present), import the avatar plugin module, load the
 model and the default avatar once (shared across sessions), warm up the
-step, wire the session manager, start the aiohttp server. ``queue`` and
-``null`` transports start a session-0 render thread at boot.
+step, wire the session manager, start the aiohttp server. WebRTC signaling
+(``POST /offer``) is attached when ``aiortc`` imports (else a warning and no
+route); ``rtmp``/``virtualcam``/``queue``/``null`` transports start a
+session-0 render thread at boot, and ``rtcpush`` dials out ``--push_url``
+for ``--max_session`` sessions. ``/human`` of type ``chat`` goes through
+``llm.llm_response``; ``GET /record/{sessionid}`` serves the session's
+recording (``data/record/<id>.mp4``).
 
 ``POST /session`` creates a session without WebRTC signaling (returns
 ``{"sessionid": ...}``) and ``POST /session/close`` stops one.
 ``--profile_dir`` traces the process with ``torch.profiler`` (CPU, and
-CUDA on the card) from boot and writes the trace there at exit. WebRTC
-signaling, the chat LLM bridge and recording come with later slices
-(ROADMAP.md). ``aiohttp`` is imported only by the web app.
+CUDA on the card) from boot and writes the trace there at exit.
+``aiohttp`` is imported only by the web app.
 """
 
 from __future__ import annotations
@@ -26,7 +30,9 @@ from threading import Event, Thread
 
 from livetalking_tpu_torch import registry
 from livetalking_tpu_torch.avatars import AVATAR_MODULES
+from livetalking_tpu_torch.avatars.base_avatar import record_path
 from livetalking_tpu_torch.config import parse_args
+from livetalking_tpu_torch.llm import llm_response
 from livetalking_tpu_torch.server.session_manager import MEASURED_CAPACITY, session_manager
 from livetalking_tpu_torch.utils.device import resolve_device
 from livetalking_tpu_torch.utils.logger import logger
@@ -36,6 +42,7 @@ model = None
 global_avatars = {}
 _load_avatar = None
 _render_threads = {}
+rtc_manager = None
 
 
 def build_avatar_session(sessionid: str, params: dict):
@@ -153,10 +160,38 @@ def build_web_app():
             logger.exception("close_session exception:")
             return json_error(str(e))
 
+    async def download_record(request: web.Request) -> web.StreamResponse:
+        """GET /record/{sessionid} — the session's recording, or 404."""
+        path = record_path(request.match_info["sessionid"])
+        if os.path.exists(path):
+            return web.FileResponse(path)
+        return web.Response(status=404, text="Record not found")
+
     app = web.Application(client_max_size=1024**2 * 100)
+    app["llm_response"] = llm_response
     app["opt"] = opt
+
+    global rtc_manager
+    try:
+        from livetalking_tpu_torch.server.rtc_manager import RTCManager
+    except ImportError as e:
+        logger.warning("WebRTC unavailable (aiortc missing: %s) - /offer disabled", e)
+    else:
+        rtc_manager = RTCManager(opt)
+        app["rtc_manager"] = rtc_manager
+
+        async def offer(request):
+            return await rtc_manager.handle_offer(request)
+
+        async def on_shutdown(_app):
+            await rtc_manager.shutdown()
+
+        app.router.add_post("/offer", offer)
+        app.on_shutdown.append(on_shutdown)
+
     app.router.add_post("/session", create_session_route)
     app.router.add_post("/session/close", close_session_route)
+    app.router.add_get("/record/{sessionid}", download_record)
     setup_routes(app)
     return app
 
@@ -209,7 +244,7 @@ def main() -> None:
         atexit.register(start_profiler(opt.profile_dir, opt.device))  # written at shutdown
         logger.info("torch.profiler tracing to %s", opt.profile_dir)
 
-    if opt.transport in ("queue", "null"):
+    if opt.transport in ("virtualcam", "rtmp", "queue", "null"):
         # boot-time session 0 with a background render thread
         session_manager.add_session("0", build_avatar_session("0", {}))
         start_render_thread("0")
@@ -223,6 +258,10 @@ def main() -> None:
     loop.run_until_complete(runner.setup())
     site = web.TCPSite(runner, "0.0.0.0", opt.listenport)
     loop.run_until_complete(site.start())
+    if opt.transport == "rtcpush" and rtc_manager is not None:
+        for k in range(opt.max_session):
+            push_url = opt.push_url if k == 0 else opt.push_url + str(k)
+            loop.run_until_complete(rtc_manager.handle_rtcpush(push_url, str(k)))
     loop.run_forever()
 
 

@@ -5,6 +5,11 @@
     eventpoints);
   - custom "action choreography": idle video/audio loops keyed by
     ``audiotype``, switched by ``set_custom_state``;
+  - per-session recording to ``data/record/<sessionid>.mp4``: the port's
+    native muxer (one in-process h264 + aac mp4 muxer), or two ffmpeg-CLI
+    pipes (raw BGR -> h264, s16le -> aac) muxed on stop where the native
+    module cannot be built; a broken recorder disables itself and never
+    stops the compose thread;
   - SSE fan-out via ``msgqueues`` / ``send_msg`` / ``notify``;
   - 4-thread pipeline per session: TTS -> feature ring buffer ->
     inference -> frame compose/output, linked by bounded queues, with
@@ -12,9 +17,7 @@
     all-silence fast path that skips the network entirely.
 
 Device work lives in the subclasses: ``inference_batch`` receives the
-device-resident feature batch from ``feat_queue``. Recording needs the
-native muxer of the reference package, which a later slice ports;
-``start_recording`` raises until then.
+device-resident feature batch from ``feat_queue``.
 """
 
 from __future__ import annotations
@@ -23,16 +26,17 @@ import glob
 import json
 import os
 import queue
+import subprocess
 import time
 from collections import deque
 from importlib import import_module
 from queue import Queue
-from threading import Event, Thread
+from threading import Event, Lock, Thread
 from typing import Dict, List, Optional
 
 import numpy as np
 
-from livetalking_tpu_torch import registry
+from livetalking_tpu_torch import native, registry
 from livetalking_tpu_torch.audio_features.base import AudioFrameData
 from livetalking_tpu_torch.streamout import OUTPUT_MODULES
 from livetalking_tpu_torch.tts import TTS_MODULES
@@ -41,6 +45,12 @@ from livetalking_tpu_torch.utils.image import mirror_index, read_imgs
 from livetalking_tpu_torch.utils.logger import logger
 
 WATERMARK = "LiveTalking"
+
+
+def record_path(sessionid: str) -> str:
+    """Where a session's recording lands: ``data/record/<sessionid>.mp4``
+    under the working directory (``GET /record/{sessionid}`` serves it)."""
+    return os.path.join("data", "record", f"{sessionid}.mp4")
 
 
 class BaseAvatar:
@@ -58,6 +68,13 @@ class BaseAvatar:
 
         self.speaking = False
         self.recording = False
+        self._rec_native = False
+        self._rec_muxer = None
+        self._rec_pending_audio: List[np.ndarray] = []
+        self._rec_video_pipe = None
+        self._rec_audio_pipe = None
+        self._record_lock = Lock()  # writers (compose thread) vs start/stop (HTTP)
+        self.width = self.height = 0
 
         # custom choreography state (audiotype 0 = normal, 1 = silence, >1 = custom)
         self.custom_audiotype = 0
@@ -202,13 +219,107 @@ class BaseAvatar:
     # ------------------------------------------------------------------
     # recording
     # ------------------------------------------------------------------
+    def _record_path(self) -> str:
+        path = record_path(self.sessionid)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        return path
+
     def start_recording(self) -> None:
-        raise NotImplementedError(
-            "recording needs the native muxer, which this package has not "
-            "ported yet (ROADMAP.md)")
+        """Start recording the composed stream. With the native muxer the
+        file opens on the next video frame (it needs the frame size) and
+        audio before it is buffered; the ffmpeg-CLI fallback needs a frame
+        to have been composed already, and is ignored (logged) before."""
+        # outside the lock: the first call may build the native module, and
+        # the compose thread takes the lock for every frame
+        rec_native = native.available()
+        with self._record_lock:
+            if self.recording:
+                return
+            self._rec_muxer = None
+            self._rec_native = rec_native
+            if self._rec_native:
+                self._rec_pending_audio = []
+                self.recording = True
+                return
+            if self.width == 0:
+                logger.error("start_recording before the first frame (unknown "
+                             "dims) requires the native muxer - ignoring")
+                return
+            vcmd = ["ffmpeg", "-y", "-an", "-f", "rawvideo", "-vcodec", "rawvideo",
+                    "-pix_fmt", "bgr24", "-s", f"{self.width}x{self.height}",
+                    "-r", str(self.opt.fps), "-i", "-", "-pix_fmt", "yuv420p",
+                    "-vcodec", "h264", f"temp{self.sessionid}.mp4"]
+            acmd = ["ffmpeg", "-y", "-vn", "-f", "s16le", "-ac", "1", "-ar", "16000",
+                    "-i", "-", "-acodec", "aac", f"temp{self.sessionid}.aac"]
+            self._rec_video_pipe = subprocess.Popen(vcmd, stdin=subprocess.PIPE)
+            self._rec_audio_pipe = subprocess.Popen(acmd, stdin=subprocess.PIPE)
+            self.recording = True
+
+    def record_video_data(self, image: np.ndarray) -> None:
+        if self.width == 0:
+            self.height, self.width, _ = image.shape
+        with self._record_lock:
+            if not self.recording:
+                return
+            try:
+                if self._rec_native:
+                    if self._rec_muxer is None:
+                        h, w = image.shape[:2]
+                        self._rec_muxer = native.AVMuxer(self._record_path(), w, h, self.opt.fps)
+                        for pcm in self._rec_pending_audio:
+                            self._rec_muxer.write_audio(pcm)
+                        self._rec_pending_audio = []
+                    self._rec_muxer.write_video(image)
+                else:
+                    self._rec_video_pipe.stdin.write(image.tobytes())
+            except Exception as e:
+                # a broken recorder must never kill the compose thread
+                logger.error("recording video write failed - disabling: %s", e)
+                self.recording = False
+
+    def record_audio_data(self, frame: np.ndarray) -> None:
+        with self._record_lock:
+            if not self.recording:
+                return
+            try:
+                if self._rec_native:
+                    if self._rec_muxer is None:
+                        self._rec_pending_audio.append(np.asarray(frame, np.int16))
+                    else:
+                        self._rec_muxer.write_audio(frame)
+                else:
+                    self._rec_audio_pipe.stdin.write(frame.tobytes())
+            except Exception as e:
+                logger.error("recording audio write failed - disabling: %s", e)
+                self.recording = False
 
     def stop_recording(self) -> None:
-        pass
+        """Finish the file: close the native muxer, or close both ffmpeg pipes
+        and mux their outputs into ``data/record/<sessionid>.mp4``. Also
+        closes what a recorder that disabled itself left open."""
+        with self._record_lock:
+            self.recording = False
+            if self._rec_muxer is not None:
+                self._rec_muxer.close()
+                self._rec_muxer = None
+            if self._rec_video_pipe is None:
+                return
+            video, audio = self._rec_video_pipe, self._rec_audio_pipe
+            self._rec_video_pipe = self._rec_audio_pipe = None
+        for proc in (video, audio):
+            proc.stdin.close()
+            proc.wait()
+        subprocess.run(
+            ["ffmpeg", "-y", "-i", f"temp{self.sessionid}.aac",
+             "-i", f"temp{self.sessionid}.mp4", "-c:v", "copy", "-c:a", "copy",
+             self._record_path()],
+            check=False,
+        )
+        for tmp in (f"temp{self.sessionid}.aac", f"temp{self.sessionid}.mp4"):
+            try:
+                os.remove(tmp)
+            except OSError as e:
+                logger.error("error removing temp file %s: %s", tmp, e)
 
     # ------------------------------------------------------------------
     # render pipeline
@@ -389,10 +500,12 @@ class BaseAvatar:
                         0.3, (128, 128, 128), 1)
 
             self.output.push_video_frame(frame)
+            self.record_video_data(frame)
 
             for af in audio_frames:
                 pcm16 = (af.data * 32767).astype(np.int16)
                 self.output.push_audio_frame(pcm16, af.userdata)
+                self.record_audio_data(pcm16)
 
         self.output.stop()
         logger.info("baseavatar process_frames thread stop")

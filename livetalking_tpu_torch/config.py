@@ -48,7 +48,8 @@ def _declare_flags(parser: argparse.ArgumentParser) -> None:
 
     # TTS
     add("--tts", type=str, default="edgetts",
-        help="tts plugin: dummy (the provider plugins: ROADMAP.md)")
+        help="tts plugin: edgetts/gpt-sovits/xtts/cosyvoice/fishtts/tencent/"
+             "doubao/indextts2/azuretts/qwentts/omnitts/dummy")
     add("--REF_FILE", type=str, default="zh-CN-YunxiaNeural",
         help="reference audio filename or voice model id")
     add("--REF_TEXT", type=str, default=None)
@@ -56,7 +57,7 @@ def _declare_flags(parser: argparse.ArgumentParser) -> None:
 
     # transport
     add("--transport", type=str, default="webrtc",
-        help="output: queue/null (rtcpush/webrtc/rtmp/virtualcam: ROADMAP.md)")
+        help="output: webrtc/rtcpush/rtmp/virtualcam/queue/null")
     add("--stun", type=str, default="stun:stun.freeswitch.org:3478")
     add("--push_url", type=str,
         default="http://localhost:1985/rtc/v1/whip/?app=live&stream=livestream")

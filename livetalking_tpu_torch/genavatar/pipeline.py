@@ -323,7 +323,9 @@ def _clip_audio(video_path: str, audio_path: Optional[str]) -> Optional[np.ndarr
     else:
         try:
             wav, sr = decode_audio(video_path)
-        except (RuntimeError, subprocess.CalledProcessError) as e:
+        except (RuntimeError, ValueError, subprocess.CalledProcessError) as e:
+            # no decoder (RuntimeError), the native decoder's "no audio
+            # stream" (ValueError) or the ffmpeg CLI's failure
             logger.warning("ernerf: no usable audio track (%s) - zero conditioning", e)
             return None
     wav = np.asarray(resample(wav, sr, 16000), np.float32)

@@ -1,9 +1,11 @@
 """Business API routes (ports livetalking_tpu/server/routes.py).
 
 Uniform ``{"code":0,"msg":"ok","data":...}`` JSON envelope; endpoints
-``/human`` ``/humanaudio`` ``/set_audiotype`` ``/record`` (answers with
-the error envelope until recording is ported) ``/interrupt_talk``
-``/is_speaking`` ``/sse`` ``/api/admin/config`` ``/api/admin/sessions``
+``/human`` (``chat`` through the app's ``llm_response``) ``/humanaudio``
+``/set_audiotype`` ``/record`` (``start_record``/``end_record``: the
+session records to ``data/record/<id>.mp4``, which the app's ``GET
+/record/{sessionid}`` serves) ``/interrupt_talk`` ``/is_speaking`` ``/sse``
+``/api/admin/config`` ``/api/admin/sessions``
 ``/api/admin/metrics`` plus static files from ``web/``; the FunASR
 websocket ``/api/asr`` (server/asr_server.py) when an STT backend is
 injected or Whisper weights are present, and the avatar-build task routes

@@ -15,6 +15,7 @@ from typing import TYPE_CHECKING, Optional, Tuple
 
 import numpy as np
 
+from livetalking_tpu_torch.utils.audio import resample
 from livetalking_tpu_torch.utils.logger import logger
 
 if TYPE_CHECKING:  # pragma: no cover
@@ -76,6 +77,46 @@ class BaseTTS:
             eventpoint.update(**textevent)
             self.parent.put_audio_frame(stream[idx : idx + self.chunk], eventpoint)
             idx += self.chunk
+
+    def stream_pcm16(self, byte_iter, src_sr: int, msg: Tuple[str, dict]) -> None:
+        """Progressively emit a raw int16 PCM byte stream as 20 ms frames.
+
+        Per chunk: convert, resample to 16 kHz, emit whole 20 ms frames,
+        carrying the remainder (and any odd byte) to the next chunk. The
+        ``start`` eventpoint rides the first frame and a trailing silence
+        frame carries ``end``; under ``State.PAUSE`` no further speech
+        frame is emitted.
+        """
+        text, textevent = msg
+        first = True
+        carry_bytes = b""
+        carry = np.array([], np.float32)
+        for chunk in byte_iter:
+            if not chunk:
+                continue
+            data = carry_bytes + chunk
+            if len(data) % 2:
+                data, carry_bytes = data[:-1], data[-1:]
+            else:
+                carry_bytes = b""
+            stream = np.frombuffer(data, dtype=np.int16).astype(np.float32) / 32767.0
+            if src_sr != self.sample_rate:
+                stream = resample(stream, src_sr, self.sample_rate)
+            stream = np.concatenate([carry, stream])
+            idx = 0
+            n = stream.shape[0]
+            while n - idx >= self.chunk and self.state == State.RUNNING:
+                eventpoint = {}
+                if first:
+                    eventpoint = {"status": "start", "text": text}
+                    first = False
+                eventpoint.update(**textevent)
+                self.parent.put_audio_frame(stream[idx : idx + self.chunk], eventpoint)
+                idx += self.chunk
+            carry = stream[idx:]
+        endpoint = {"status": "end", "text": text}
+        endpoint.update(**textevent)
+        self.parent.put_audio_frame(np.zeros(self.chunk, np.float32), endpoint)
 
     def txt_to_audio(self, msg: Tuple[str, dict]) -> None:
         raise NotImplementedError

@@ -1,9 +1,10 @@
 """Host-side audio decode + resample (ports livetalking_tpu/utils/audio.py).
 
 The engine contract is 16 kHz mono float32. WAV decodes with stdlib
-``wave``/numpy; other containers go through ``soundfile`` or the ``ffmpeg``
-CLI when present (the first-party native decoder of the reference package
-comes with a later slice). Resampling is ``scipy.signal.resample_poly``.
+``wave``/numpy; other containers (edge-tts's MP3, ogg) go through
+``soundfile`` when it is installed, else the port's native decoder
+(``livetalking_tpu_torch/native``, libavformat), else the ``ffmpeg`` CLI.
+Resampling is ``scipy.signal.resample_poly``.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ from fractions import Fraction
 from typing import Tuple, Union
 
 import numpy as np
+
+from livetalking_tpu_torch import native
 
 TARGET_SR = 16000
 
@@ -51,6 +54,10 @@ def _decode_wav_stdlib(data: bytes) -> Tuple[np.ndarray, int]:
 
 
 def _decode_ffmpeg(data: bytes) -> Tuple[np.ndarray, int]:
+    """Decode any container: the native decoder (libavformat through
+    ``livetalking_tpu_torch/native``), then the ffmpeg CLI if present."""
+    if native.available():
+        return native.decode_audio_bytes(data, TARGET_SR), TARGET_SR
     if not shutil.which("ffmpeg"):
         raise RuntimeError("cannot decode non-WAV audio: no decoder available")
     proc = subprocess.run(

@@ -172,6 +172,25 @@ def test_import_guard_covers_the_parallel_modules():
         assert f"{PKG}.{mod}" in SOURCES and f"{PKG}.{mod}" in SMOKE_PATH
 
 
+def test_import_guard_covers_the_host_edge_modules():
+    """The host edge (WebRTC, RTMP, the virtual camera, the native muxer's
+    binding, the TTS providers, the LLM bridge) is among the sources
+    ``test_no_jax_and_no_reference_package`` reads; file by file, the JAX
+    package then has no module without a counterpart in the port but its
+    Pallas kernels (ported as ``csrc/*.cu``) and ``utils/jaxinit.py``."""
+    tts = ("edge", "sovits", "xtts", "cosyvoice", "fish", "tencent", "doubao", "indextts2",
+           "azure", "qwentts", "omnitts")
+    for mod in ("llm", "native", "server.webrtc", "server.rtc_manager", "streamout.webrtc",
+                "streamout.rtmp", "streamout.virtualcam", *(f"tts.{t}" for t in tts)):
+        assert f"{PKG}.{mod}" in SOURCES
+    ref = ROOT / "livetalking_tpu"
+    missing = sorted(str(p.relative_to(ref)) for p in ref.rglob("*")
+                     if p.suffix in (".py", ".cpp") and "__pycache__" not in p.parts
+                     and not (ROOT / PKG / p.relative_to(ref)).exists())
+    assert missing == ["ops/pallas_attention.py", "ops/pallas_blend.py", "ops/pallas_conv.py",
+                       "utils/jaxinit.py"]
+
+
 def test_training_cuda_requests_raise_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device")

@@ -4,14 +4,15 @@ Boots ``livetalking_tpu_torch.app`` in a thread on the CPU (queue transport,
 dummy TTS, a synthetic avatar directory written by the reference package's
 helper and read by the port's ``load_avatar``) and checks the envelope of
 ``/session``, ``/human`` echo, ``/is_speaking``, ``/interrupt_talk``,
-``/api/admin/sessions``, ``/api/admin/metrics``, ``/record`` and unknown
-sessions.
+``/api/admin/sessions``, ``/api/admin/metrics``, ``/record`` with ``GET
+/record/{sessionid}`` and unknown sessions.
 """
 
 import asyncio
+import queue
 import socket
 import time
-from threading import Thread
+from threading import Event, Thread
 
 import pytest
 import requests
@@ -122,10 +123,64 @@ def test_unknown_session_error_envelope(server):
         assert r["code"] == -1 and "session not found" in r["msg"], route
 
 
-def test_record_answers_with_the_error_envelope(server, sessionid):
-    r = requests.post(server + "/record", json={"sessionid": sessionid,
-                                                 "type": "start_record"}).json()
-    assert r["code"] == -1 and "muxer" in r["msg"]
+def test_record_start_end_and_download(server, sessionid, tmp_path, monkeypatch):
+    """``/record`` start_record, 0.5 s of frames, end_record: the session's native
+    muxer writes ``data/record/<id>.mp4`` under the server's working
+    directory, and ``GET /record/<id>`` serves those bytes; their audio is
+    as long as the PCM the compose loop recorded (AAC pads up to one 1024-
+    sample frame; a frame may straddle the start or the stop)."""
+    from livetalking_tpu_torch import native
+
+    if not native.available():
+        pytest.skip("the native muxer cannot be built here (g++, pkg-config or ffmpeg libs)")
+    monkeypatch.chdir(tmp_path)
+    sess = session_manager.get_session(sessionid)
+    recorded = []
+    record_audio = sess.record_audio_data
+
+    def spy(frame):
+        with sess._record_lock:
+            on = sess.recording
+        record_audio(frame)
+        if on:
+            recorded.append(len(frame))
+
+    monkeypatch.setattr(sess, "record_audio_data", spy)
+    stop = Event()
+
+    def drain():  # the queue transport has no consumer here: keep frames flowing
+        while not stop.is_set():
+            try:
+                sess.output.video_queue.get(timeout=0.1)
+            except queue.Empty:
+                pass
+
+    drainer = Thread(target=drain, daemon=True)
+    drainer.start()
+    try:
+        r = requests.post(server + "/record", json={"sessionid": sessionid,
+                                                     "type": "start_record"}).json()
+        assert r == {"code": 0, "msg": "ok"} and sess.recording
+        deadline = time.time() + 60
+        while sum(recorded) < 8000 and time.time() < deadline:
+            time.sleep(0.05)
+        r = requests.post(server + "/record", json={"sessionid": sessionid,
+                                                     "type": "end_record"}).json()
+        assert r == {"code": 0, "msg": "ok"} and not sess.recording
+    finally:
+        stop.set()
+        drainer.join(5)
+    got = requests.get(f"{server}/record/{sessionid}", timeout=10)
+    assert got.status_code == 200
+    path = tmp_path / "data" / "record" / f"{sessionid}.mp4"
+    assert got.content == path.read_bytes() and len(got.content) > 1000
+    audio = native.decode_audio_bytes(got.content)
+    assert abs(audio.shape[0] - sum(recorded)) <= 1024 + 640, (audio.shape, sum(recorded))
+
+
+def test_record_download_of_an_unknown_session_is_404(server):
+    r = requests.get(server + "/record/no-such-session", timeout=10)
+    assert r.status_code == 404 and r.text == "Record not found"
 
 
 def test_admin_metrics(server, sessionid):
