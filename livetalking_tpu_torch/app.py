@@ -34,6 +34,7 @@ from livetalking_tpu_torch.avatars.base_avatar import record_path
 from livetalking_tpu_torch.config import parse_args
 from livetalking_tpu_torch.llm import llm_response
 from livetalking_tpu_torch.server.session_manager import MEASURED_CAPACITY, session_manager
+from livetalking_tpu_torch.utils import spans
 from livetalking_tpu_torch.utils.device import resolve_device
 from livetalking_tpu_torch.utils.logger import logger
 
@@ -200,8 +201,9 @@ def start_profiler(profile_dir: str, device):
     """Trace CPU activity, and CUDA activity on the card, from now on (the
     port's ``jax.profiler.start_trace``). Returns ``stop()``, which ends the
     trace and writes it to ``<profile_dir>/trace_<pid>.json`` (Chrome
-    trace format, TensorBoard and Perfetto read it) and returns the path; a
-    failure to write is logged at error level and raised."""
+    trace format, TensorBoard and Perfetto read it), with the port's spans
+    (``utils/spans.py``) on their threads above the kernels, and returns the
+    path; a failure to write is logged at error level and raised."""
     import torch
 
     os.makedirs(profile_dir, exist_ok=True)
@@ -216,6 +218,7 @@ def start_profiler(profile_dir: str, device):
         path = os.path.join(profile_dir, f"trace_{os.getpid()}.json")
         try:
             prof.export_chrome_trace(path)
+            spans.add_to_chrome_trace(path)
         except Exception:
             logger.exception("--profile_dir: could not write the trace to %s", path)
             raise

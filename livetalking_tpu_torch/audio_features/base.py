@@ -4,8 +4,11 @@ livetalking_tpu/audio_features/base.py).
   - ``queue``: input, fed by TTS with 20 ms chunks;
   - ``output_queue``: audio passthrough to the frame composer;
   - ``feat_queue`` (maxsize 2): the back-pressure point to the inference
-    thread; it carries device tensors, which the model step or the shared
-    scheduler consumes;
+    thread; it carries ``(device tensor, request id, open features.queue
+    span)``: the features the model step or the shared scheduler consumes,
+    the id of this session batch (``utils/spans.py::request_ids``), which
+    the scheduler and the compose thread carry on, and the span the
+    inference thread's get closes;
   - starvation synthesizes silence (type=1) after a 10 ms timeout so the
     avatar idles instead of stalling;
   - when the parent session plays custom choreography audio
@@ -24,6 +27,8 @@ from queue import Queue
 from typing import TYPE_CHECKING, List, Optional
 
 import numpy as np
+
+from livetalking_tpu_torch.utils import spans
 
 if TYPE_CHECKING:  # pragma: no cover
     from livetalking_tpu_torch.avatars.base_avatar import BaseAvatar
@@ -57,6 +62,7 @@ class BaseFeatureExtractor:
         self.output_queue: Queue[AudioFrameData] = Queue()
         self.feat_queue: Queue = Queue(maxsize=2)
         self.frames: List[np.ndarray] = []
+        self._rids = spans.request_ids()
 
     # -- ingest -----------------------------------------------------------
     def put_audio_frame(self, audio_chunk: np.ndarray, datainfo: Optional[dict] = None) -> None:
@@ -102,6 +108,11 @@ class BaseFeatureExtractor:
             self.frames.append(frame.data)
             self.output_queue.put(frame)
         return n_speech
+
+    def _put_feats(self, feats, rid: int) -> None:
+        """Hand one step's features to the inference thread (blocks while
+        two batches wait there: the wait is part of ``features.queue``)."""
+        self.feat_queue.put((feats, rid, spans.begin("features.queue", rid)))
 
     def _trim_frames(self) -> None:
         """Keep only the l+r stride context for the next step."""

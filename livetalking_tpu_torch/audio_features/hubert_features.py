@@ -20,6 +20,7 @@ import torch
 
 from livetalking_tpu_torch.audio_features.base import BaseFeatureExtractor, clamp_window_indices
 from livetalking_tpu_torch.models import hubert as hub
+from livetalking_tpu_torch.utils import spans
 
 
 class HubertFeatures(BaseFeatureExtractor):
@@ -59,6 +60,7 @@ class HubertFeatures(BaseFeatureExtractor):
         is_all_silence = n_speech == 0
         if len(self.frames) <= self.stride_left_size + self.stride_right_size:
             return
+        rid = next(self._rids)
 
         if is_all_silence and self.last_is_silence:
             feats = self._zero  # no network on sustained silence
@@ -69,8 +71,9 @@ class HubertFeatures(BaseFeatureExtractor):
                     [np.zeros(self._n_samples - audio.shape[0], np.float32), audio])
             elif audio.shape[0] > self._n_samples:
                 audio = audio[-self._n_samples:]
-            feats = self._fn(audio)
+            with spans.span("features.encode", rid, 1):
+                feats = self._fn(audio)
 
-        self.feat_queue.put(feats)
+        self._put_feats(feats, rid)
         self._trim_frames()
         self.last_is_silence = is_all_silence

@@ -13,6 +13,7 @@ import numpy as np
 
 from livetalking_tpu_torch.audio_features.base import BaseFeatureExtractor
 from livetalking_tpu_torch.ops.mel import make_mel_chunks_fn
+from livetalking_tpu_torch.utils import spans
 
 
 class MelFeatures(BaseFeatureExtractor):
@@ -28,6 +29,7 @@ class MelFeatures(BaseFeatureExtractor):
         self._ingest_step_frames()
         if len(self.frames) <= self.stride_left_size + self.stride_right_size:
             return
+        rid = next(self._rids)
 
         audio = np.concatenate(self.frames).astype(np.float32)
         want = self._window_frames * self.chunk
@@ -36,6 +38,7 @@ class MelFeatures(BaseFeatureExtractor):
         elif audio.shape[0] > want:
             audio = audio[-want:]
 
-        feats = self._fn(audio)  # (B, 80, 16) device tensor
-        self.feat_queue.put(feats)
+        with spans.span("features.encode", rid, 1):
+            feats = self._fn(audio)  # (B, 80, 16) device tensor
+        self._put_feats(feats, rid)
         self._trim_frames()

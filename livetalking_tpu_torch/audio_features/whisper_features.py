@@ -22,6 +22,7 @@ import torch
 from livetalking_tpu_torch.audio_features.base import BaseFeatureExtractor, clamp_window_indices
 from livetalking_tpu_torch.models import whisper_encoder as we
 from livetalking_tpu_torch.ops.whisper_mel import log_mel_spectrogram
+from livetalking_tpu_torch.utils import spans
 from livetalking_tpu_torch.utils.logger import logger
 
 
@@ -118,6 +119,7 @@ class WhisperFeatures(BaseFeatureExtractor):
         is_all_silence = n_speech == 0
         if len(self.frames) <= self.stride_left_size + self.stride_right_size:
             return
+        rid = next(self._rids)
 
         if is_all_silence and self.last_is_silence:
             # sustained silence: no encoder run (the inference thread skips
@@ -130,19 +132,22 @@ class WhisperFeatures(BaseFeatureExtractor):
                     [np.zeros(self._n_samples - audio.shape[0], np.float32), audio])
             elif audio.shape[0] > self._n_samples:
                 audio = audio[-self._n_samples:]
-            if self._coalescer is not None:
-                try:
-                    feats = self._coalescer.encode(audio)
-                except Exception as e:
-                    # a stopped or wedged coalescer must not kill the render
-                    # loop: the avatar idles for this tick (the reference's
-                    # silence-synthesis degradation)
-                    logger.warning("feature coalescer encode failed (%s): "
-                                   "silence features this tick", e)
-                    feats = self._zero
-            else:
-                feats = self._fn(audio)
+            # the encode with the coalescer's wait; its count is the
+            # coalesced batch's rows (the coalescer notes them)
+            with spans.span("features.encode", rid, 1):
+                if self._coalescer is not None:
+                    try:
+                        feats = self._coalescer.encode(audio)
+                    except Exception as e:
+                        # a stopped or wedged coalescer must not kill the
+                        # render loop: the avatar idles for this tick (the
+                        # reference's silence-synthesis degradation)
+                        logger.warning("feature coalescer encode failed (%s): "
+                                       "silence features this tick", e)
+                        feats = self._zero
+                else:
+                    feats = self._fn(audio)
 
-        self.feat_queue.put(feats)
+        self._put_feats(feats, rid)
         self._trim_frames()
         self.last_is_silence = is_all_silence

@@ -14,7 +14,13 @@
   - 4-thread pipeline per session: TTS -> feature ring buffer ->
     inference -> frame compose/output, linked by bounded queues, with
     back-pressure (sleep when the output backlog is >= 5 frames) and the
-    all-silence fast path that skips the network entirely.
+    all-silence fast path that skips the network entirely. Each feature
+    batch's request id rides the queues to the compose thread, and spans
+    (``utils/spans.py``, while a profiler runs) time the hand-offs:
+    ``features.queue`` (closed by the inference thread's get),
+    ``session.inflight`` (frames on the host until handed on),
+    ``compose.queue`` (per frame, ``res_frame_queue``'s put to get) and
+    ``compose.frame`` (the compose thread's work on a frame).
 
 Device work lives in the subclasses: ``inference_batch`` receives the
 device-resident feature batch from ``feat_queue``.
@@ -40,6 +46,7 @@ from livetalking_tpu_torch import native, registry
 from livetalking_tpu_torch.audio_features.base import AudioFrameData
 from livetalking_tpu_torch.streamout import OUTPUT_MODULES
 from livetalking_tpu_torch.tts import TTS_MODULES
+from livetalking_tpu_torch.utils import spans
 from livetalking_tpu_torch.utils.audio import load_pcm16k
 from livetalking_tpu_torch.utils.image import mirror_index, read_imgs
 from livetalking_tpu_torch.utils.logger import logger
@@ -86,6 +93,8 @@ class BaseAvatar:
         self._load_custom()
 
         self.batch_size = opt.batch_size
+        # (crop or None, its two audio frames, cycle index, request id,
+        # open compose.queue span)
         self.res_frame_queue: Queue = Queue(self.batch_size * 2)
 
         self.tts = self._create_plugin("tts", opt.tts, TTS_MODULES)
@@ -332,13 +341,15 @@ class BaseAvatar:
         (B, S, S, 3) uint8 mouth-region frames. Implemented by plugins."""
         raise NotImplementedError
 
-    def submit_batch(self, index: int, audiofeat_batch):
-        """Asynchronously submit one batch; returns an opaque handle for
-        ``resolve_batch``. Default: run ``inference_batch`` synchronously
-        and hand back the finished frames (depth-1 pipeline). Plugins
-        backed by the shared BatchScheduler override this pair so the
-        session can keep ``--session_inflight`` batches in flight, so
-        its emission period is not the request round-trip latency."""
+    def submit_batch(self, index: int, audiofeat_batch, rid=None):
+        """Asynchronously submit one batch (``rid``: its request id);
+        returns an opaque handle for ``resolve_batch``. Default: run
+        ``inference_batch`` synchronously and hand back the finished frames
+        (depth-1 pipeline). Plugins backed by the shared BatchScheduler
+        override this pair so the session can keep ``--session_inflight``
+        batches in flight, so its emission period is not the request
+        round-trip latency; their handle's ``host_ns`` says when the frames
+        reached the host."""
         return self.inference_batch(index, audiofeat_batch)
 
     def resolve_batch(self, handle) -> np.ndarray:
@@ -361,20 +372,17 @@ class BaseAvatar:
         inflight-1 batches)."""
         length = self.get_avatar_length()
         index = 0
-        count = 0
-        counttime = 0.0
         last_speaking = False
         depth = max(1, int(getattr(self.opt, "session_inflight", 2) or 1))
-        # (handle | None, audio_frames, base_index, submit_seconds)
+        # (handle | None, audio_frames, base_index, request id, the
+        # perf_counter_ns instant a synchronous handle's frames were ready)
         pending: "deque" = deque()
         logger.info("start inference (inflight=%d)", depth)
 
         def emit_one() -> None:
-            nonlocal count, counttime
-            handle, afr, base_idx, dt = pending.popleft()
+            handle, afr, base_idx, rid, ready_ns = pending.popleft()
             pred = None
             if handle is not None:
-                t0 = time.perf_counter()
                 try:
                     pred = self.resolve_batch(handle)
                 except Exception:
@@ -386,33 +394,29 @@ class BaseAvatar:
                     logger.exception(
                         "inference_batch failed: idle frames for this batch")
                     pred = None
-                dt += time.perf_counter() - t0
             if pred is None:
                 for i in range(self.batch_size):
                     idx = mirror_index(length, base_idx + i)
-                    self.res_frame_queue.put((None, afr[i * 2 : i * 2 + 2], idx))
+                    self.res_frame_queue.put((None, afr[i * 2 : i * 2 + 2], idx, rid,
+                                              spans.begin("compose.queue", rid)))
             else:
-                # inferfps counts time BLOCKED on the device (submit +
-                # resolve wait); with the synchronous default that is the
-                # whole step, matching the reference's per-batch timing
-                counttime += dt
-                count += self.batch_size
-                if count >= 100:
-                    logger.info(f"------actual avg infer fps:{count / counttime:.4f}")
-                    count = 0
-                    counttime = 0.0
+                host_ns = getattr(handle, "host_ns", ready_ns)
+                if host_ns is not None:
+                    spans.record("session.inflight", host_ns, spans.now(), rid)
                 for i in range(len(pred)):
                     self.res_frame_queue.put(
-                        (pred[i], afr[i * 2 : i * 2 + 2], mirror_index(length, base_idx + i))
+                        (pred[i], afr[i * 2 : i * 2 + 2], mirror_index(length, base_idx + i),
+                         rid, spans.begin("compose.queue", rid))
                     )
 
         while not quit_event.is_set():
             try:
-                audiofeat_batch = self.asr.feat_queue.get(block=True, timeout=1)
+                audiofeat_batch, rid, queued = self.asr.feat_queue.get(block=True, timeout=1)
             except queue.Empty:
                 while pending:  # starved: flush in-flight results
                     emit_one()
                 continue
+            spans.end(queued)
 
             audio_frames: List[AudioFrameData] = []
             is_all_silence = True
@@ -424,20 +428,19 @@ class BaseAvatar:
 
             current_speaking = not is_all_silence
             if is_all_silence:
-                pending.append((None, audio_frames, index, 0.0))
+                pending.append((None, audio_frames, index, rid, None))
                 index += self.batch_size
             else:
                 if current_speaking and not last_speaking and self.custom_index.get(1) is not None:
                     index = 0  # silence->speech with a custom idle video: restart cycle
-                t = time.perf_counter()
                 try:
-                    handle = self.submit_batch(index, audiofeat_batch)
+                    handle = self.submit_batch(index, audiofeat_batch, rid)
                 except Exception:
                     logger.exception(
                         "inference submit failed: idle frames for this batch")
                     handle = None
-                pending.append((handle, audio_frames, index,
-                                time.perf_counter() - t))
+                pending.append((handle, audio_frames, index, rid,
+                                spans.now() if spans.on() else None))
                 index += self.batch_size
             while len(pending) >= depth:
                 emit_one()
@@ -460,55 +463,62 @@ class BaseAvatar:
         if self.output is None:
             logger.error("no streamout plugin - compose thread not starting")
             return
-        import cv2  # the watermark: byte-identical to the reference's frames
-
         self.output.start()
         while not quit_event.is_set():
             try:
-                res_frame, audio_frames, idx = self.res_frame_queue.get(block=True, timeout=1)
+                res_frame, audio_frames, idx, rid, queued = self.res_frame_queue.get(
+                    block=True, timeout=1)
             except queue.Empty:
                 continue
-
-            if audio_frames[0].type != 0 and audio_frames[1].type != 0:
-                self.speaking = False
-                audiotype = audio_frames[0].type
-                if self.custom_index.get(audiotype) is not None:
-                    cycle = self.custom_img_cycle[audiotype]
-                    mirindex = mirror_index(len(cycle), self.custom_index[audiotype])
-                    frame = cycle[mirindex].copy()  # don't mutate the cycle
-                    self.custom_index[audiotype] += 1
-                else:
-                    frame = self.frame_list_cycle[idx].copy()
-            else:
-                self.speaking = True
-                if res_frame is None:
-                    # a degraded speech batch (inference_batch failure):
-                    # replay the idle frame rather than dropping A/V sync
-                    frame = self.frame_list_cycle[idx].copy()
-                else:
-                    try:
-                        frame = self.paste_back_frame(res_frame, idx)  # fresh frame
-                    except Exception as e:
-                        logger.warning("paste_back_frame error: %s", e)
-                        continue
-
-            # device-buffer views may be read-only or non-C-contiguous
-            # (backend-dependent); cv2 needs a writable C-order Mat
-            if not (frame.flags.c_contiguous and frame.flags.writeable):
-                frame = np.array(frame, order="C", copy=True)
-            cv2.putText(frame, WATERMARK, (10, 20), cv2.FONT_HERSHEY_SIMPLEX,
-                        0.3, (128, 128, 128), 1)
-
-            self.output.push_video_frame(frame)
-            self.record_video_data(frame)
-
-            for af in audio_frames:
-                pcm16 = (af.data * 32767).astype(np.int16)
-                self.output.push_audio_frame(pcm16, af.userdata)
-                self.record_audio_data(pcm16)
+            spans.end(queued)
+            with spans.span("compose.frame", rid):
+                self._compose_one(res_frame, audio_frames, idx)
 
         self.output.stop()
         logger.info("baseavatar process_frames thread stop")
+
+    def _compose_one(self, res_frame, audio_frames, idx: int) -> None:
+        """Paste back (or replay the idle frame), watermark and push one
+        frame with its two 20 ms audio frames."""
+        import cv2  # the watermark: byte-identical to the reference's frames
+
+        if audio_frames[0].type != 0 and audio_frames[1].type != 0:
+            self.speaking = False
+            audiotype = audio_frames[0].type
+            if self.custom_index.get(audiotype) is not None:
+                cycle = self.custom_img_cycle[audiotype]
+                mirindex = mirror_index(len(cycle), self.custom_index[audiotype])
+                frame = cycle[mirindex].copy()  # don't mutate the cycle
+                self.custom_index[audiotype] += 1
+            else:
+                frame = self.frame_list_cycle[idx].copy()
+        else:
+            self.speaking = True
+            if res_frame is None:
+                # a degraded speech batch (inference_batch failure):
+                # replay the idle frame rather than dropping A/V sync
+                frame = self.frame_list_cycle[idx].copy()
+            else:
+                try:
+                    frame = self.paste_back_frame(res_frame, idx)  # fresh frame
+                except Exception as e:
+                    logger.warning("paste_back_frame error: %s", e)
+                    return
+
+        # device-buffer views may be read-only or non-C-contiguous
+        # (backend-dependent); cv2 needs a writable C-order Mat
+        if not (frame.flags.c_contiguous and frame.flags.writeable):
+            frame = np.array(frame, order="C", copy=True)
+        cv2.putText(frame, WATERMARK, (10, 20), cv2.FONT_HERSHEY_SIMPLEX,
+                    0.3, (128, 128, 128), 1)
+
+        self.output.push_video_frame(frame)
+        self.record_video_data(frame)
+
+        for af in audio_frames:
+            pcm16 = (af.data * 32767).astype(np.int16)
+            self.output.push_audio_frame(pcm16, af.userdata)
+            self.record_audio_data(pcm16)
 
     def render(self, quit_event) -> None:
         """Main per-session loop: start the TTS / inference / compose

@@ -317,13 +317,13 @@ class LightReal(BaseAvatar):
         if self._scheduler is not None and int(getattr(opt, "scheduler_prewarm", 1)):
             self._scheduler.prewarm_async((16, 32, 32))
 
-    def submit_batch(self, index: int, audiofeat_batch):
+    def submit_batch(self, index: int, audiofeat_batch, rid=None):
         """Pipelined submission into the shared scheduler; synchronous
         ``inference_batch`` when not coalesced."""
         if self._scheduler is None:
             return self.inference_batch(index, audiofeat_batch)
         idxs = mirror_indices(self._n_faces, index, self.batch_size)
-        return self._scheduler.submit(idxs + self._store_offset, audiofeat_batch)
+        return self._scheduler.submit(idxs + self._store_offset, audiofeat_batch, rid)
 
     def resolve_batch(self, handle) -> np.ndarray:
         if isinstance(handle, np.ndarray):

@@ -23,6 +23,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
+from livetalking_tpu_torch.utils import spans
 from livetalking_tpu_torch.utils.logger import logger
 
 
@@ -81,12 +82,15 @@ class FeatureCoalescer:
     def encode(self, wav: np.ndarray, timeout: float = 120.0):
         """Bounded wait: a wedged device surfaces as an error in the
         session's feature thread instead of a silent hang; a bucket's
-        first call extends the bound."""
+        first call extends the bound. The rows of the batch that ran it go
+        to the caller's open span (``spans.note``)."""
         fut = self.submit(wav)
         deadline = time.monotonic() + timeout
         while True:
             try:
-                return fut.result(timeout=2.0)
+                row = fut.result(timeout=2.0)
+                spans.note(fut.rows)
+                return row
             except FutureTimeout:
                 now = time.monotonic()
                 if now < deadline or self._in_grace(now):
@@ -179,6 +183,7 @@ class FeatureCoalescer:
                 self._warm.add(bucket)
                 for i, (_w, f) in enumerate(reqs):
                     if not f.done():
+                        f.rows = len(reqs)
                         f.set_result(out[i])  # a row of the device output
             except Exception as e:
                 logger.exception("feature coalescer encode failed")

@@ -21,6 +21,13 @@ on the copy's event, copies the frames out of the slot, returns the slot
 to the ring and resolves the futures. At most two batches are in flight,
 so the ring holds at most two slots per shape, and a slot is never
 overwritten before its fetch is done.
+
+Spans (``utils/spans.py``, while a profiler runs), on the scheduler's clock:
+``sched.hold`` per request, from ``submit`` to its super-batch's launch;
+``sched.dispatch``, the launch itself; ``sched.to_host`` per super-batch,
+from the launch to its frames on the host, ending on the reading that
+stamps ``latency_s``, so a request's hold and its batch's ``to_host`` add
+up to its ``latency_s`` entry.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from livetalking_tpu_torch.utils import spans
 from livetalking_tpu_torch.utils.logger import logger
 
 MAX_IN_FLIGHT = 2
@@ -131,13 +139,19 @@ class AvatarStore:
 
 
 class _Request:
-    __slots__ = ("idxs", "mel", "future", "t_submit")
+    __slots__ = ("idxs", "mel", "future", "t_submit", "rid")
 
-    def __init__(self, idxs: np.ndarray, mel, future: Future, t_submit: float):
+    def __init__(self, idxs: np.ndarray, mel, future: Future, t_submit: float, rid=None):
         self.idxs = idxs
         self.mel = mel
         self.future = future
         self.t_submit = t_submit
+        self.rid = rid  # the session batch's request id (spans)
+
+
+def _ns(t: float) -> int:
+    """A reading of the scheduler's clock in the spans' nanoseconds."""
+    return round(t * 1e9)
 
 
 class _HostRing:
@@ -196,7 +210,8 @@ class BatchScheduler:
     ``(model, buffer, idxs(total,), mel(total, ...)) -> frames(total, ...)``
     function (e.g. models/wav2lip.py ``make_infer_fn``). ``buckets`` are
     the session-count bucket sizes (padding absorbs fluctuating session
-    counts). ``clock`` stamps requests and times the alignment window.
+    counts). ``clock`` stamps requests and times the alignment window; the
+    spans read it too, so it runs in ``time.perf_counter``'s seconds.
     """
 
     def __init__(
@@ -207,7 +222,7 @@ class BatchScheduler:
         batch_size: int,
         buckets: Sequence[int] = (1, 2, 4, 8),
         coalesce_window_s: float = 0.0,
-        clock: Callable[[], float] = time.monotonic,
+        clock: Callable[[], float] = time.perf_counter,
     ):
         self.model = model
         self.store = store
@@ -250,16 +265,18 @@ class BatchScheduler:
         self._prewarm_threads: List[threading.Thread] = []
 
     # -- session API ------------------------------------------------------
-    def submit(self, global_idxs: np.ndarray, mel) -> Future:
-        """Queue one session batch (B indices into the store + features);
-        returns a Future resolving to (B, ...) uint8 frames."""
+    def submit(self, global_idxs: np.ndarray, mel, rid=None) -> Future:
+        """Queue one session batch (B indices into the store + features,
+        ``rid`` its request id); returns a Future resolving to (B, ...) uint8
+        frames. While spans record, the future's ``host_ns`` is the instant
+        the frames reached the host."""
         if self._quit.is_set():
             raise RuntimeError("batch scheduler stopped")
         fut: Future = Future()
         with self._submit_lock:
             self.requests_submitted += 1
         self._queue.put(_Request(np.asarray(global_idxs, np.int32), mel, fut,
-                                 self._clock()))
+                                 self._clock(), rid))
         return fut
 
     def wait(self, fut: Future, timeout: float = 120.0) -> np.ndarray:
@@ -395,13 +412,18 @@ class BatchScheduler:
             copied.record(self._copy_stream)
         return _InFlight(out, self._ring, host, copied)
 
-    def _resolve(self, batch: _InFlight, reqs: List[_Request]) -> None:
+    def _resolve(self, batch: _InFlight, reqs: List[_Request], t_launch: float) -> None:
         """Wait for the batch's frames on the host and scatter them to the
         per-session futures."""
         B = self.batch_size
         frames = batch.frames()
         now = self._clock()
+        host_ns = _ns(now) if spans.on() else None
+        if host_ns is not None:
+            spans.record("sched.to_host", _ns(t_launch), host_ns,
+                         tuple(r.rid for r in reqs), len(reqs))
         for i, r in enumerate(reqs):
+            r.future.host_ns = host_ns
             r.future.set_result(frames[i * B : (i + 1) * B])
             self.latency_s.append(now - r.t_submit)
         self.batch_sizes.append(len(reqs))
@@ -419,9 +441,9 @@ class BatchScheduler:
                     r.future.set_exception(e)
             return None
 
-    def _try_resolve(self, batch: _InFlight, reqs: List[_Request]) -> None:
+    def _try_resolve(self, batch: _InFlight, reqs: List[_Request], t_launch: float) -> None:
         try:
-            self._resolve(batch, reqs)
+            self._resolve(batch, reqs, t_launch)
         except Exception as e:
             logger.exception("batch scheduler resolve failed")
             for r in reqs:
@@ -464,7 +486,7 @@ class BatchScheduler:
                 if item is None:
                     return
                 batch, reqs, t_launch = item
-                self._try_resolve(batch, reqs)
+                self._try_resolve(batch, reqs, t_launch)
                 now = self._clock()
                 with lock:
                     state["in_flight"] -= 1
@@ -481,6 +503,12 @@ class BatchScheduler:
             self._launch_sizes.append(len(batch))
             t_launch = self._clock()
             out = self._try_dispatch(batch)
+            if spans.on():
+                sent_ns, launch_ns = _ns(self._clock()), _ns(t_launch)
+                spans.record("sched.dispatch", launch_ns, sent_ns,
+                             tuple(r.rid for r in batch), len(batch))
+                for r in batch:
+                    spans.record("sched.hold", _ns(r.t_submit), launch_ns, r.rid)
             if out is not None:
                 with lock:
                     state["in_flight"] += 1

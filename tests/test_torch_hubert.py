@@ -175,9 +175,9 @@ def test_silence_skips_the_network(features):
     tf.warm_up()
     tf.last_is_silence = True
     tf.run_step()  # the queue is empty: silence is synthesized
-    silent = tf.feat_queue.get_nowait()
+    silent, _rid, _queued = tf.feat_queue.get_nowait()
     assert silent is tf._zero and not calls and float(silent.abs().sum()) == 0.0
     for _ in range(4):
         tf.put_audio_frame(np.full(320, 0.1, np.float32))
     tf.run_step()
-    assert len(calls) == 1 and float(tf.feat_queue.get_nowait().sum()) > 0
+    assert len(calls) == 1 and float(tf.feat_queue.get_nowait()[0].sum()) > 0

@@ -90,7 +90,10 @@ def _compose(avatar, ticks, cycle, record_from=None, record_to=None):
             avatar.start_recording()
         if k == record_to:
             avatar.stop_recording()
-        avatar.res_frame_queue.put((None, frames, idx))
+        item = (None, frames, idx)
+        if type(avatar).__module__.startswith("livetalking_tpu_torch"):
+            item += (None, None)  # the port's item adds a request id and an open span
+        avatar.res_frame_queue.put(item)
         pushed.append(np.concatenate([(f.data * 32767).astype(np.int16) for f in frames]))
         deadline = time.time() + 10
         while done[0] < 2 * (k + 1) and time.time() < deadline:
