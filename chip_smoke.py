@@ -62,8 +62,16 @@ modules are installed).
                   step on the CPU at B=2: at most 1 LSB; the bf16 step's time.
   9. musetalk model — the fp32 MuseTalk step at B=1 on the card (TF32 off)
                   against the CPU: at most 1 LSB; the bf16 step's time at B=16
-                  with 17 attention launches per step; the batched Whisper
+                  with 17 attention launches and 91 GroupNorm calls per step
+                  (their shapes recorded), its profile; the batched Whisper
                   encode's time at k=1 and k=2.
+     norm       — the GroupNorm (-> SiLU) kernel against its plain version at
+                  every site of that step, B=16 and B=128: at most 1 bf16 ulp
+                  apart on 99.9% of the elements, the normalized values within
+                  1 ulp + 2^-16 of the affine's terms, SiLU bit for bit on
+                  them, bitwise equal across two launches; ``device_ms`` against the bound (4
+                  bytes an element), TB/s at the 6 bytes it moves, the plain
+                  version's time, sums per step.
  10. musetalk int8 model — the B=16 step with ``--vae_int8 --unet_int8``,
                   calibrated on the synthetic avatar as a first session does,
                   unfused (80 int8 conv launches) and with ``LT_FUSED_VAE=1``
@@ -208,6 +216,10 @@ PEAKS = [
 EXP_PER_SM_CLOCK = 16  # SFU exponentials per SM per clock
 NO_LIBRARY = "null (no single PyTorch call resizes per item into per-item boxes, blends and pastes)"
 NO_INT8_CONV = "null (PyTorch has no int8 convolution on CUDA)"
+# kernel-6 calls (GroupNorm sites) per MuseTalk step: every site of the bf16
+# step (61 U-Net, 30 VAE decode); the int8 step with LT_FUSED_VAE=1 keeps
+# kernel 5 from the decoder's block 1 on (61 U-Net, 11 decoder mid and block 0)
+NORM_SITES_BF16, NORM_SITES_INT8 = 91, 72
 FUSED_REF_DB = 35.0  # tests/test_pallas_conv.py::test_fused_decode_matches_xla_path
 FUSED_SERVED_DB = 30.0  # fused vs unfused at the served shapes (phase_musetalk_int8_model)
 INT8_E2E_DB = 24.0  # tests/test_int8_quality.py's end-to-end bar
@@ -708,6 +720,32 @@ def ulps_apart(torch, got, want) -> float:
     return float(((got.float() - w).abs() / ulp).max())
 
 
+def norm_against_plain(torch, got, want, x, scale, shift, beta, chunk: int = 1 << 25) -> tuple:
+    """(share of elements within 1 bf16 ulp of ``want``, the largest
+    |got - want| - ulp(max(|got|, |want|)) - 2^-16 (|x scale| + |mu scale| +
+    |beta|)), in chunks (the largest tensors fill a quarter of the card in
+    float32): moments summed in another order move the float32 affine by a
+    part of its terms' sizes before it is rounded, not of its result (which
+    cancels near 0). ``mu scale`` is ``beta - shift``."""
+    def ulp(v):
+        return torch.ldexp(torch.ones_like(v), torch.frexp(v).exponent - 8)
+
+    C = x.shape[-1]
+    g, w, xs = got.reshape(-1, C), want.reshape(-1, C), x.reshape(-1, C)
+    rows, per_sample = max(1, chunk // C), x[0].numel() // C
+    bf = beta.float()
+    terms = ((bf - shift).abs() + bf.abs()) * 2.0 ** -16  # (B, C)
+    within, excess = 0, float("-inf")
+    for i in range(0, w.shape[0], rows):
+        gf, wf, xf = g[i:i + rows].float(), w[i:i + rows].float(), xs[i:i + rows].float()
+        bi = torch.arange(i, i + gf.shape[0], device=x.device) // per_sample
+        diff = (gf - wf).abs()
+        within += int((diff <= ulp(wf)).sum())
+        excess = max(excess, float((diff - ulp(torch.maximum(gf.abs(), wf.abs()))
+                                    - (xf * scale[bi]).abs() * 2.0 ** -16 - terms[bi]).max()))
+    return within / w.numel(), excess
+
+
 def device_ms(torch, fn, clock_hz: float, n: int = 20, reps: int = 3) -> float:
     """The card's own time per call of ``fn``: ``n`` calls queued behind
     ``torch.cuda._sleep``, long enough that the host has queued all ``n``
@@ -1176,7 +1214,29 @@ def profile_step(torch, run, steps: int, step_ms: float, tag: str = "profile") -
     return {"kernel_ms": total, "busy_share": total / step_ms}
 
 
-def phase_musetalk_model(torch, muse, mt, attn, wf) -> dict:
+def record_norm_sites(norm, run) -> dict:
+    """{(H, W, C, groups, eps, silu): calls} of kernel 6 in one ``run()``,
+    read by a wrapper around ``norm._launch`` (the kernel pair's launch,
+    which ``norm.group_norm`` looks up on the module at each call)."""
+    sites = collections.Counter()
+    launch = norm._launch
+
+    def recording(x, gamma, beta, groups, eps, silu):
+        sites[(x.shape[1], x.shape[2], x.shape[3], groups, float(eps), bool(silu))] += 1
+        return launch(x, gamma, beta, groups, eps, silu)
+
+    norm._launch = recording
+    try:
+        run()
+    finally:
+        norm._launch = launch
+    return dict(sites)
+
+
+def phase_musetalk_model(torch, muse, mt, attn, norm, wf) -> dict:
+    """The fp32 step on the card against the CPU, the bf16 step's time,
+    launches and profile, kernel 6's sites in it (returned), the batched
+    Whisper encode."""
     from livetalking_tpu_torch.config import default_opt
 
     torch.backends.cudnn.allow_tf32 = False
@@ -1212,16 +1272,22 @@ def phase_musetalk_model(torch, muse, mt, attn, wf) -> dict:
     wh = torch.from_numpy(rng.standard_normal((B, 50, 384)).astype(np.float32)).cuda()
     step = mt.make_infer_fn(model["unet_cfg"], B, dtype=torch.bfloat16)
     run = lambda: step(model["unet_params"], model["vae_params"], cyc, ix, wh)  # noqa: E731
-    before = attn.attention.launches
+    before = attn.attention.launches, norm.group_norm.launches
     out = run()
     torch.cuda.synchronize()
-    per_step = attn.attention.launches - before
+    per_step = attn.attention.launches - before[0]
+    norm_per_step = norm.group_norm.launches - before[1]
     if per_step != 17 or tuple(out.shape) != (B, S, S, 3) or out.dtype != torch.uint8:
         raise AssertionError(f"bf16 step: {per_step} attention launches (want 17), "
                              f"output {tuple(out.shape)} {out.dtype}")
+    norm_sites = record_norm_sites(norm, run)
+    if norm_per_step != NORM_SITES_BF16 or sum(norm_sites.values()) != NORM_SITES_BF16:
+        raise AssertionError(f"bf16 step: {norm_per_step} group_norm calls "
+                             f"({sum(norm_sites.values())} recorded), want {NORM_SITES_BF16}")
     ms = cuda_ms(run, warmup=3, iters=20)
     log("musetalk_model", B=B, dtype="bfloat16", step_ms=f"{ms:.3f}",
-        inferfps=f"{B / ms * 1e3:.1f}", attention_launches_per_step=per_step)
+        inferfps=f"{B / ms * 1e3:.1f}", attention_launches_per_step=per_step,
+        group_norm_calls_per_step=norm_per_step)
     profile_step(torch, run, steps=3, step_ms=ms)
 
     enc = {}
@@ -1240,7 +1306,88 @@ def phase_musetalk_model(torch, muse, mt, attn, wf) -> dict:
                 ms=f"{enc[(short, k)]:.3f}")
     del model
     torch.cuda.empty_cache()
-    return {"step_ms": ms, "encode_ms": enc}
+    return {"step_ms": ms, "encode_ms": enc, "norm_sites": norm_sites}
+
+
+def phase_norm(torch, norm, sites: dict, peak_bw: float, clock_hz: float) -> dict:
+    """Kernel 6 against its plain version at every site of the bf16 step
+    (``sites``, as ``record_norm_sites`` read them), at B=16 and B=128: at
+    most 1 bf16 ulp apart on 99.9% of the elements; the normalized values
+    within 1 ulp plus 2^-16 of the affine's terms (``norm_against_plain``);
+    SiLU's output PyTorch's SiLU of them bit for bit; the same bits from a
+    second launch. Timed by ``device_ms`` against its bound (x read and y
+    written once in bf16, 4 bytes an element) and by the 6 bytes an element
+    the two launches move (x read twice); the plain version's time; as
+    context, the library's (``F.group_norm`` on the NCHW view, then
+    ``F.silu`` at SiLU sites: the same function, rounded otherwise); sums
+    per step of each B."""
+    from torch.nn import functional as F
+
+    steps = {}
+    worst = float("-inf")
+    for B in (16, 128):
+        step = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                "bound_ms": 0.0}
+        for (Hh, Ww, C, groups, eps, silu), n in sorted(sites.items()):
+            gen = torch.Generator(device="cuda").manual_seed(Hh * 7 + C + B)
+            x = (torch.randn((B, Hh, Ww, C), device="cuda", generator=gen) * 1.5
+                 + 0.3).to(torch.bfloat16)
+            g = (torch.rand(C, device="cuda", generator=gen) + 0.5).to(torch.bfloat16)
+            b = (torch.randn(C, device="cuda", generator=gen) * 0.3).to(torch.bfloat16)
+            call = functools.partial(norm.group_norm, x, g, b, groups, eps, silu=silu)
+            got = call()
+            if not torch.equal(got, call()):
+                raise AssertionError(f"group_norm {(B, Hh, Ww, C, silu)}: two launches differ")
+            pre = norm.group_norm(x, g, b, groups, eps) if silu else got
+            if silu and not torch.equal(got, F.silu(pre.float()).to(torch.bfloat16)):
+                raise AssertionError(f"group_norm {(B, Hh, Ww, C)}: SiLU output is not the "
+                                     "plain SiLU of the kernel's normalized values")
+            xf = x.float()
+            scale, shift = norm.affine_from_moments(xf.sum(dim=(1, 2)), (xf * xf).sum(dim=(1, 2)),
+                                                    g, b, Hh * Ww, groups, eps)
+            del xf
+            _, excess = norm_against_plain(torch, pre, norm.group_norm_plain(x, g, b, groups, eps),
+                                           x, scale, shift, b)
+            del pre
+            within_one, _ = norm_against_plain(
+                torch, got, norm.group_norm_plain(x, g, b, groups, eps, silu=silu), x, scale,
+                shift, b)
+            del got
+            if within_one < 0.999 or excess > 0:
+                raise AssertionError(f"group_norm {(B, Hh, Ww, C, silu)}: {within_one:.6f} of "
+                                     f"the elements within 1 ulp, the normalized values "
+                                     f"{excess} over 1 ulp + 2^-16 of the affine's terms")
+            worst = max(worst, excess)
+            ms = cuda_ms(call, warmup=3, iters=20)
+            dms = device_ms(torch, call, clock_hz)
+            plain_ms = cuda_ms(functools.partial(norm.group_norm_plain, x, g, b, groups, eps,
+                                                 silu=silu), warmup=1, iters=3)
+
+            def library(x=x, g=g, b=b, groups=groups, eps=eps, silu=silu):
+                y = F.group_norm(x.permute(0, 3, 1, 2), groups, g, b, eps)
+                return F.silu(y) if silu else y
+
+            library_ms = cuda_ms(library, warmup=3, iters=20)
+            elements = B * Hh * Ww * C
+            bound_ms = 4 * elements / peak_bw * 1e3
+            for key, val in (("ms", ms), ("device_ms", dms), ("plain_ms", plain_ms),
+                             ("library_ms", library_ms), ("bound_ms", bound_ms)):
+                step[key] += n * val
+            log("norm", shape=f"{B}x{Hh}x{Ww}x{C}", silu=silu, per_step=n,
+                kernel_ms=f"{ms:.4f}", device_ms=f"{dms:.4f}", plain_ms=f"{plain_ms:.4f}",
+                library_ms=f"{library_ms:.4f}", bound_ms=f"{bound_ms:.5f}",
+                share_of_bound=f"{bound_ms / dms:.3f}",
+                tb_per_s_at_6_bytes=f"{6 * elements / dms / 1e9:.3f}",
+                within_1_ulp=f"{within_one:.6f}", excess_over_bound=f"{excess:.3g}")
+            del x
+            torch.cuda.empty_cache()
+        log("norm", B=B, per_bf16_step=f"{sum(sites.values())} calls",
+            kernel_ms=f"{step['ms']:.4f}", device_ms=f"{step['device_ms']:.4f}",
+            plain_ms=f"{step['plain_ms']:.4f}", library_ms=f"{step['library_ms']:.4f}",
+            bound_ms=f"{step['bound_ms']:.4f}",
+            share_of_bound=f"{step['bound_ms'] / step['device_ms']:.3f}")
+        steps[B] = step
+    return {"max_excess": worst, "steps": steps}
 
 
 @contextlib.contextmanager
@@ -1357,12 +1504,13 @@ def phase_engine(torch, app, plugin, blend, session_manager) -> dict:
         plugin.reset_shared_scheduler()
 
 
-def phase_musetalk_engine(torch, app, muse, blend, attn, conv, synthetic, sd_vae,
+def phase_musetalk_engine(torch, app, muse, blend, attn, conv, norm, synthetic, sd_vae,
                           session_manager, int8: bool = False) -> dict:
-    """Two coalesced MuseTalk sessions on avatars encoded on the card; with
-    ``int8``, ``--vae_int8 --unet_int8`` and ``LT_FUSED_VAE=1``: the first
-    session quantizes and calibrates, and every step runs 59 kernel-4 and
-    21 kernel-5 launches."""
+    """Two coalesced MuseTalk sessions on avatars encoded on the card: every
+    bf16 step runs 91 kernel-6 calls; with ``int8``, ``--vae_int8
+    --unet_int8`` and ``LT_FUSED_VAE=1``, the first session quantizes and
+    calibrates, and every step runs 59 kernel-4, 21 kernel-5 and 72
+    kernel-6 launches."""
     from livetalking_tpu_torch.config import default_opt
 
     phase = "musetalk_int8_engine" if int8 else "musetalk_engine"
@@ -1390,17 +1538,20 @@ def phase_musetalk_engine(torch, app, muse, blend, attn, conv, synthetic, sd_vae
         blend.blend_masked_.launches = 0
         conv.conv3x3_q.launches = 0
         conv.conv3x3_gnq.launches = 0
+        norm.group_norm.launches = 0
         r = drive_sessions(app, session_manager, muse, ids, boxes[0],
                            lambda: {"attention": attn.attention.launches,
                                     "blend_mask": blend.blend_masked_.launches,
                                     "conv3x3_q": conv.conv3x3_q.launches,
-                                    "conv3x3_gnq": conv.conv3x3_gnq.launches})
+                                    "conv3x3_gnq": conv.conv3x3_gnq.launches,
+                                    "group_norm": norm.group_norm.launches})
         fc, sched, c = muse._shared["feat_coalescer"], r["sched"], r["counts"]
         if fc is None or fc.batches_run == 0:
             raise AssertionError("the feature coalescer ran no batch")
         n = sched.batches_run
         want = {"attention": 17, "blend_mask": 1, "conv3x3_q": 59 if int8 else 0,
-                "conv3x3_gnq": 21 if int8 else 0}
+                "conv3x3_gnq": 21 if int8 else 0,
+                "group_norm": NORM_SITES_INT8 if int8 else NORM_SITES_BF16}
         if n == 0 or any(c[k] < per * n for k, per in want.items()):
             raise AssertionError(f"launches {c} for {n} scheduler batches; want at least "
                                  f"{want} per batch")
@@ -3120,7 +3271,7 @@ def main(argv) -> int:
     from livetalking_tpu_torch.models import ultralight as ul
     from livetalking_tpu_torch.models import wav2lip as w2l
     from livetalking_tpu_torch.models import whisper_decoder, whisper_encoder
-    from livetalking_tpu_torch.ops import _build, attention, blend, conv
+    from livetalking_tpu_torch.ops import _build, attention, blend, conv, norm
     from livetalking_tpu_torch.server import asr_server, textnorm
     from livetalking_tpu_torch.server.session_manager import session_manager
     from livetalking_tpu_torch.utils import synthetic
@@ -3150,7 +3301,7 @@ def main(argv) -> int:
         return out
 
     t0 = time.time()
-    ptxas = [start_ptxas_report(_build, source) for source in ("conv", "blend")]
+    ptxas = [start_ptxas_report(_build, source) for source in ("conv", "blend", "norm")]
     libs = _build.build_all()
     log("build", seconds=f"{time.time() - t0:.2f}", libs=sorted(libs))
     for proc in ptxas:
@@ -3169,14 +3320,15 @@ def main(argv) -> int:
                clock_mhz * 1e6)
     k5 = timed("gnq", phase_gnq, torch, conv, sd_vae, peak_bw, peak_f32, peak_int8)
     timed("model", phase_model, torch, w2l)
-    timed("musetalk_model", phase_musetalk_model, torch, muse, mt, attention, wf)
+    mm = timed("musetalk_model", phase_musetalk_model, torch, muse, mt, attention, norm, wf)
+    k6 = timed("norm", phase_norm, torch, norm, mm["norm_sites"], peak_bw, clock_mhz * 1e6)
     timed("musetalk_int8_model", phase_musetalk_int8_model, torch, muse, mt, conv, attention,
           wf, synthetic, sd_vae)
     e = timed("engine", phase_engine, torch, app, plugin, blend, session_manager)
     me = timed("musetalk_engine", phase_musetalk_engine, torch, app, muse, blend, attention,
-               conv, synthetic, sd_vae, session_manager)
+               conv, norm, synthetic, sd_vae, session_manager)
     qe = timed("musetalk_int8_engine", phase_musetalk_engine, torch, app, muse, blend,
-               attention, conv, synthetic, sd_vae, session_manager, True)
+               attention, conv, norm, synthetic, sd_vae, session_manager, True)
     timed("hubert", phase_hubert, torch, hubert, ul, hubert_features, default_opt, peak_bw,
           peak_f32)
     timed("ultralight_model", phase_ultralight_model, torch, ul, synthetic, peak_bw, peak_bf16)
@@ -3243,6 +3395,17 @@ def main(argv) -> int:
             qe["conv3x3_q"], k4["max_abs_err"], k4["step"], None),
         row("conv3x3_gnq", src + "conv.cu", "livetalking_tpu/ops/pallas_conv.py:324",
             qe["conv3x3_gnq"], k5["max_abs_err"], k5["step"], None),
+        # kernel 6 replaces no TPU kernel (XLA fuses GroupNorm); its error: the
+        # largest excess over norm_against_plain's bound (<= 0); ms and
+        # device_ms per bf16 step at B=16, and at B=128 beside them; library_ms:
+        # F.group_norm on the NCHW view (then F.silu), the same function
+        {**row("group_norm", src + "norm.cu", None, me["group_norm"], k6["max_excess"],
+               {**k6["steps"][16], "bound_by": "bytes"}, k6["steps"][16]["library_ms"]),
+         "int8_launches": qe["group_norm"],
+         "b128_ms": k6["steps"][128]["ms"], "b128_device_ms": k6["steps"][128]["device_ms"],
+         "b128_plain_ms": k6["steps"][128]["plain_ms"],
+         "b128_library_ms": k6["steps"][128]["library_ms"],
+         "b128_bound_ms": k6["steps"][128]["bound_ms"]},
     ]
     log("done", seconds=f"{time.time() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -8,7 +8,10 @@ and runs ``F.conv2d`` on it. Parameters are nested dictionaries in the
 reference's tree structure with PyTorch leaf layouts: conv ``w``
 (O, I, kh, kw), linear ``w`` (out, in), norm ``g``/``b``. GroupNorm,
 LayerNorm and softmax run in f32; ``linear`` and ``layer_norm`` are the
-shared primitives of ``models/layers.py``.
+shared primitives of ``models/layers.py``. ``group_norm`` and
+``group_norm_silu`` (a GroupNorm followed by SiLU) run kernel 6
+(``ops.norm.group_norm``) on a CUDA bf16 tensor when no gradient is
+recorded, the same arithmetic in plain PyTorch otherwise.
 
 Self-attention (``attention`` with ``ctx=None``, and the VAE's
 ``spatial_attention``) goes through ``ops.attention.attention``, the
@@ -38,6 +41,7 @@ from torch.nn import functional as F
 from livetalking_tpu_torch.models.layers import layer_norm_f32 as layer_norm
 from livetalking_tpu_torch.models.layers import linear_f32 as linear
 from livetalking_tpu_torch.models.layers import to_numpy
+from livetalking_tpu_torch.ops import norm as norm_ops
 from livetalking_tpu_torch.ops.attention import attention as attention_kernel
 from livetalking_tpu_torch.ops.conv import CHANNEL_MULTIPLE, conv3x3_q, int8_matmul
 from livetalking_tpu_torch.parallel.tp import gather_conv_output
@@ -57,28 +61,31 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return F.silu(x.float()).to(x.dtype)
 
 
+def _norm(p: Params, x: torch.Tensor, groups: int, eps: float, silu: bool) -> torch.Tensor:
+    """GroupNorm (then SiLU) on the kernel of ``ops/norm.py`` for a CUDA
+    bf16 x when no gradient is recorded; the plain version otherwise."""
+    records_grad = torch.is_grad_enabled() and (
+        x.requires_grad or p["g"].requires_grad or p["b"].requires_grad)
+    if norm_ops.routes_to_kernel(x.device.type, x.dtype, records_grad):
+        return norm_ops.group_norm(x, p["g"], p["b"], groups, eps, silu=silu)
+    return norm_ops.group_norm_plain(x, p["g"], p["b"], groups, eps, silu=silu)
+
+
 def group_norm(p: Params, x: torch.Tensor, groups: int = 32, eps: float = 1e-6) -> torch.Tensor:
     """x (B, H, W, C); normalize per group over (H, W, C/groups).
 
-    The reference's arithmetic: per-channel f32 spatial moments, combined
-    into group moments, variance E[x^2] - E[x]^2 clamped at 0 before the
-    rsqrt, then one per-(B, C) scale and shift."""
-    B, H, W, C = x.shape
-    n = H * W * (C // groups)
-    xf = x.float()
-    s1 = xf.sum(dim=(1, 2))                      # (B, C)
-    s2 = (xf * xf).sum(dim=(1, 2))               # (B, C)
-    g1 = s1.reshape(B, groups, C // groups).sum(-1)
-    g2 = s2.reshape(B, groups, C // groups).sum(-1)
-    mu = g1 / n
-    var = (g2 / n - mu * mu).clamp(min=0.0)
-    inv = torch.rsqrt(var + eps)
-    mu_c = mu.repeat_interleave(C // groups, dim=-1)
-    inv_c = inv.repeat_interleave(C // groups, dim=-1)
-    scale = inv_c * p["g"].float()[None]
-    shift = p["b"].float()[None] - mu_c * scale
-    y = xf * scale[:, None, None, :] + shift[:, None, None, :]
-    return y.to(x.dtype)
+    The reference's arithmetic (``ops.norm.group_norm_plain``): per-channel
+    f32 spatial moments, combined into group moments, variance E[x^2] -
+    E[x]^2 clamped at 0 before the rsqrt, then one per-(B, C) scale and
+    shift."""
+    return _norm(p, x, groups, eps, silu=False)
+
+
+def group_norm_silu(p: Params, x: torch.Tensor, groups: int = 32,
+                    eps: float = 1e-6) -> torch.Tensor:
+    """``silu(group_norm(p, x))`` with the same two roundings, in one
+    kernel pair on the card."""
+    return _norm(p, x, groups, eps, silu=True)
 
 
 def conv(p: Params, x: torch.Tensor, stride: int = 1, padding: int = 1) -> torch.Tensor:
@@ -101,11 +108,11 @@ def conv_asym(p: Params, x: torch.Tensor, stride: int, pad) -> torch.Tensor:
 def resnet_block(p: Params, x: torch.Tensor, temb: Optional[torch.Tensor] = None,
                  eps: float = 1e-6) -> torch.Tensor:
     """diffusers ResnetBlock2D: GN-silu-conv (+temb) GN-silu-conv + shortcut."""
-    h = conv(p["conv1"], silu(group_norm(p["norm1"], x, eps=eps)))
+    h = conv(p["conv1"], group_norm_silu(p["norm1"], x, eps=eps))
     if temb is not None and "time_emb_proj" in p:
         t = linear(p["time_emb_proj"], silu(temb))  # (B, C)
         h = h + t[:, None, None, :].to(h.dtype)
-    h = conv(p["conv2"], silu(group_norm(p["norm2"], h, eps=eps)))
+    h = conv(p["conv2"], group_norm_silu(p["norm2"], h, eps=eps))
     if "conv_shortcut" in p:
         x = conv(p["conv_shortcut"], x, padding=0)
     return x + h

@@ -27,7 +27,7 @@ from livetalking_tpu_torch.models.diffusion_blocks import (
     conv_q,
     count_params,
     fetch_scales,
-    group_norm,
+    group_norm_silu,
     linear,
     prepare,
     quantize_conv,
@@ -101,7 +101,7 @@ def apply(params: Params, cfg: UNetConfig, x: torch.Tensor, t: torch.Tensor,
         if "up" in blk:
             h = conv(blk["up"], upsample_nearest2x(h))
 
-    h = silu(group_norm(params["norm_out"], h, eps=cfg.norm_eps))
+    h = group_norm_silu(params["norm_out"], h, eps=cfg.norm_eps)
     return conv(params["conv_out"], h).float()
 
 
@@ -168,11 +168,11 @@ def _walk_int8(pq: Params, cfg: UNetConfig, x: torch.Tensor, t: torch.Tensor,
         return conv_q(site_q, xx, stride=stride, padding=padding)
 
     def resnet(rq, rf, h_in):
-        h = cq(rq["conv1"], rf["conv1"], silu(group_norm(rf["norm1"], h_in, eps=cfg.norm_eps)))
+        h = cq(rq["conv1"], rf["conv1"], group_norm_silu(rf["norm1"], h_in, eps=cfg.norm_eps))
         if "time_emb_proj" in rf:
             tproj = linear(rf["time_emb_proj"], silu(temb))
             h = h + tproj[:, None, None, :].to(h.dtype)
-        h = cq(rq["conv2"], rf["conv2"], silu(group_norm(rf["norm2"], h, eps=cfg.norm_eps)))
+        h = cq(rq["conv2"], rf["conv2"], group_norm_silu(rf["norm2"], h, eps=cfg.norm_eps))
         sc = h_in
         if "conv_shortcut" in rf:
             sc = cq(rq["conv_shortcut"], rf["conv_shortcut"], h_in, padding=0)
@@ -206,7 +206,7 @@ def _walk_int8(pq: Params, cfg: UNetConfig, x: torch.Tensor, t: torch.Tensor,
         if "up" in bf:
             h = cq(bq["up"], bf["up"], upsample_nearest2x(h))
 
-    a_out = silu(group_norm(pf["norm_out"], h, eps=cfg.norm_eps))
+    a_out = group_norm_silu(pf["norm_out"], h, eps=cfg.norm_eps)
     return cq(pq["conv_out"], pf["conv_out"], a_out).float()
 
 

@@ -31,11 +31,10 @@ from livetalking_tpu_torch.models.diffusion_blocks import (
     conv_asym,
     conv_q,
     fetch_scales,
-    group_norm,
+    group_norm_silu,
     prepare,
     quantize_conv,
     resnet_block,
-    silu,
     spatial_attention,
     t_conv,
     t_norm,
@@ -45,6 +44,7 @@ from livetalking_tpu_torch.models.diffusion_blocks import (
     upsample_nearest2x,
 )
 from livetalking_tpu_torch.ops.conv import conv3x3_gnq, conv3x3_gnq_fits
+from livetalking_tpu_torch.ops.norm import affine_from_moments
 
 SCALING_FACTOR = 0.18215
 BLOCK_CH: Tuple[int, ...] = (128, 256, 512, 512)
@@ -63,7 +63,7 @@ def encode(params: Params, x: torch.Tensor) -> torch.Tensor:
     h = resnet_block(params["enc_mid"]["r0"], h)
     h = spatial_attention(params["enc_mid"]["attn"], h)
     h = resnet_block(params["enc_mid"]["r1"], h)
-    h = conv(params["enc_conv_out"], silu(group_norm(params["enc_norm_out"], h)))
+    h = conv(params["enc_conv_out"], group_norm_silu(params["enc_norm_out"], h))
     moments = conv(params["quant_conv"], h, padding=0)  # (B, 32, 32, 8)
     return moments[..., :LATENT_CH] * SCALING_FACTOR
 
@@ -83,7 +83,7 @@ def decode(params: Params, z: torch.Tensor, *, dtype: torch.dtype = torch.bfloat
             h = resnet_block(rp, h)
         if "up" in blk:
             h = conv(blk["up"], upsample_nearest2x(h))
-    h = conv(params["dec_conv_out"], silu(group_norm(params["dec_norm_out"], h)))
+    h = conv(params["dec_conv_out"], group_norm_silu(params["dec_norm_out"], h))
     return (h.float() / 2.0 + 0.5).clamp(0.0, 1.0)
 
 
@@ -147,10 +147,10 @@ def _decode_scale_walk(params: Params, z: torch.Tensor, headroom: float,
         rec.append(x.float().abs().amax() * headroom / 127.0 + 1e-8)
 
     def cal_resnet(rp, x, eps=1e-6):
-        a1 = silu(group_norm(rp["norm1"], x, eps=eps))
+        a1 = group_norm_silu(rp["norm1"], x, eps=eps)
         sof(a1)
         h = conv(rp["conv1"], a1)
-        a2 = silu(group_norm(rp["norm2"], h, eps=eps))
+        a2 = group_norm_silu(rp["norm2"], h, eps=eps)
         sof(a2)
         h = conv(rp["conv2"], a2)
         if "conv_shortcut" in rp:
@@ -171,7 +171,7 @@ def _decode_scale_walk(params: Params, z: torch.Tensor, headroom: float,
             up = upsample_nearest2x(h)
             sof(up)
             h = conv(blk["up"], up)
-    sof(silu(group_norm(params["dec_norm_out"], h)))
+    sof(group_norm_silu(params["dec_norm_out"], h))
     return rec
 
 
@@ -212,8 +212,8 @@ def calibrate_decoder(params: Params, params_q: Params, z: torch.Tensor,
 
 
 def _resnet_block_q(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    h = conv_q(p["conv1"], silu(group_norm(p["norm1"], x, eps=eps)))
-    a = silu(group_norm(p["norm2"], h, eps=eps))
+    h = conv_q(p["conv1"], group_norm_silu(p["norm1"], x, eps=eps))
+    a = group_norm_silu(p["norm2"], h, eps=eps)
     if "conv_shortcut" in p:
         cs = p["conv_shortcut"]
         x = conv_q(cs, x, padding=0) if "wq" in cs else conv(cs, x, padding=0)
@@ -226,17 +226,7 @@ def _gn_scale_shift(gn_p: Params, s1: torch.Tensor, s2: torch.Tensor, hw: int,
     spatial moments s1 = sum x, s2 = sum x^2 ((B, C) f32): ``group_norm``'s
     arithmetic without its statistics pass (kernel 5's epilogue took the
     moments)."""
-    B, C = s1.shape
-    n = hw * (C // groups)
-    g1 = s1.reshape(B, groups, C // groups).sum(-1)
-    g2 = s2.reshape(B, groups, C // groups).sum(-1)
-    mu = g1 / n
-    var = (g2 / n - mu * mu).clamp(min=0.0)
-    inv = torch.rsqrt(var + eps)
-    mu_c = mu.repeat_interleave(C // groups, dim=-1)
-    inv_c = inv.repeat_interleave(C // groups, dim=-1)
-    scale = inv_c * gn_p["g"].float()[None]
-    shift = gn_p["b"].float()[None] - mu_c * scale
+    scale, shift = affine_from_moments(s1, s2, gn_p["g"], gn_p["b"], hw, groups, eps)
     return scale.contiguous(), shift.contiguous()
 
 
@@ -343,7 +333,7 @@ def decode_int8(params_q: Params, z: torch.Tensor) -> torch.Tensor:
             h = _resnet_block_q(rp, h)
         if "up" in blk:
             h = conv_q(blk["up"], upsample_nearest2x(h))
-    h = _out_conv(params_q["dec_conv_out"], silu(group_norm(params_q["dec_norm_out"], h)))
+    h = _out_conv(params_q["dec_conv_out"], group_norm_silu(params_q["dec_norm_out"], h))
     return (h.float() / 2.0 + 0.5).clamp(0.0, 1.0)
 
 

@@ -1,9 +1,9 @@
 """The port's CUDA paths on the card: each kernel (rect and masked
 paste-back, fused and in place, at S = 256 and Ultralight's 168, and in
 the Ultralight super-batch step; attention, the int8 3x3 conv and its
-bf16 twin, the fused GroupNorm-SiLU-quantize conv) against its plain
-PyTorch version, the exact int8 GEMM, and the scheduler's pinned
-device->host ring.
+bf16 twin, the fused GroupNorm-SiLU-quantize conv, GroupNorm and
+GroupNorm -> SiLU) against its plain PyTorch version, the exact int8 GEMM,
+and the scheduler's pinned device->host ring.
 
 Every test here needs a CUDA device and skips without one. The file
 imports nothing of JAX, so on a host without JAX it runs as
@@ -14,9 +14,10 @@ imports nothing of JAX, so on a host without JAX it runs as
 import numpy as np
 import pytest
 import torch
+from torch.nn import functional as F
 
 from livetalking_tpu_torch.engine.scheduler import AvatarStore, BatchScheduler
-from livetalking_tpu_torch.ops import attention, blend, conv
+from livetalking_tpu_torch.ops import attention, blend, conv, norm
 
 S, H, W = 256, 480, 640
 
@@ -670,6 +671,117 @@ def test_conv_kernels_reject_what_they_do_not_take(cuda):
         conv.conv3x3_gnq(torch.zeros((1, 8, 16, 64), dtype=torch.bfloat16, device=cuda),
                          v[None], None, act, wq, v, v)  # scale without shift
     assert (conv.conv3x3_q.launches, conv.conv3x3_gnq.launches) == before
+
+
+def unet_norm_sites():
+    """(H, C, SiLU) of the U-Net's 61 GroupNorm sites in the bf16 MuseTalk
+    step, in order: each resnet's two norms (with SiLU), each transformer's
+    norm (without) and norm_out (with)."""
+    out = []
+    blocks, L = (320, 640, 1280, 1280), 2
+    h, cin, skips = 32, 320, [320]
+    for i, c in enumerate(blocks):
+        for j in range(L):
+            out += [(h, cin if j == 0 else c, True), (h, c, True)]
+            out += [(h, c, False)] if i < 3 else []
+            skips.append(c)
+        cin = c
+        if i < 3:
+            skips.append(c)
+            h //= 2
+    out += [(h, 1280, True), (h, 1280, True), (h, 1280, False), (h, 1280, True),
+            (h, 1280, True)]
+    prev = 1280
+    for i, c in enumerate(blocks[::-1]):
+        for j in range(L + 1):
+            out += [(h, prev + skips.pop(), True), (h, c, True)]
+            out += [(h, c, False)] if i > 0 else []
+            prev = c
+        if i < 3:
+            h *= 2
+    return out + [(h, 320, True)]
+
+
+def vae_decode_norm_sites():
+    """(H, C, SiLU) of the VAE decoder's 30 GroupNorm sites, in order: the
+    mid block's resnets (with SiLU) and attention (without), the up blocks'
+    resnets and norm_out (with)."""
+    out = [(32, 512, True)] * 2 + [(32, 512, False)] + [(32, 512, True)] * 2
+    h, cin = 32, 512
+    for i, c in enumerate((512, 512, 256, 128)):
+        for j in range(3):
+            out += [(h, cin if j == 0 else c, True), (h, c, True)]
+            cin = c
+        if i < 3:
+            h *= 2
+    return out + [(h, 128, True)]
+
+
+# each distinct (H, C, SiLU) of the bf16 step's GroupNorm sites once
+NORM_SITES = sorted(set(unet_norm_sites() + vae_decode_norm_sites()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [16, 128])
+@pytest.mark.parametrize("H,C,silu", NORM_SITES)
+def test_group_norm_kernel_matches_plain(cuda, H, C, silu, B):
+    """Kernel 6 at every served site against the plain version. The kernel
+    sums the moments in another order, so its scale and shift may differ
+    from the plain version's in their last float32 bits, and a value next
+    to a bf16 rounding step rounds the other way: at least 99.9% of the
+    elements are within 1 bf16 ulp. Every normalized element (before SiLU)
+    is within 1 ulp plus 2^-16 of the sizes of the affine's terms; SiLU's
+    output is PyTorch's SiLU of the kernel's own normalized values, bit for
+    bit (SiLU turns a 1-ulp step of its input into up to ~8 ulps of its
+    output below -2.5). Two launches give the same bits; a call counts
+    once. The bound is ``chip_smoke.norm_against_plain``'s, which the
+    kernels line reads too."""
+    import chip_smoke
+
+    gen = torch.Generator(device=cuda).manual_seed(H * 7 + C + B)
+    x = (torch.randn((B, H, H, C), device=cuda, generator=gen) * 1.5 + 0.3).to(torch.bfloat16)
+    g = (torch.rand(C, device=cuda, generator=gen) + 0.5).to(torch.bfloat16)
+    b = (torch.randn(C, device=cuda, generator=gen) * 0.3).to(torch.bfloat16)
+    before = norm.group_norm.launches
+    got = norm.group_norm(x, g, b, 32, 1e-5, silu=silu)
+    assert torch.equal(got, norm.group_norm(x, g, b, 32, 1e-5, silu=silu))
+    pre = norm.group_norm(x, g, b, 32, 1e-5) if silu else got
+    torch.cuda.synchronize()
+    assert norm.group_norm.launches == before + (3 if silu else 2)
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    if silu:
+        assert torch.equal(got, F.silu(pre.float()).to(torch.bfloat16))
+    xf = x.float()
+    s1, s2 = xf.sum(dim=(1, 2)), (xf * xf).sum(dim=(1, 2))
+    del xf
+    scale, shift = norm.affine_from_moments(s1, s2, g, b, H * H, 32, 1e-5)
+    _, excess = chip_smoke.norm_against_plain(
+        torch, pre, norm.group_norm_plain(x, g, b, 32, 1e-5), x, scale, shift, b)
+    assert excess <= 0, excess
+    del pre
+    within_one, _ = chip_smoke.norm_against_plain(
+        torch, got, norm.group_norm_plain(x, g, b, 32, 1e-5, silu=silu), x, scale, shift, b)
+    assert within_one >= 0.999, within_one
+
+
+@pytest.mark.cuda
+def test_group_norm_kernel_rejects_what_it_does_not_take(cuda):
+    x = torch.zeros((2, 8, 8, 64), dtype=torch.bfloat16, device=cuda)
+    v = torch.ones(64, dtype=torch.bfloat16, device=cuda)
+    before = norm.group_norm.launches
+    with pytest.raises(ValueError):
+        norm.group_norm(x.float(), v.float(), v.float())  # float32: the plain version's
+    with pytest.raises(ValueError):
+        norm.group_norm(x[..., :36].contiguous(), v[:36], v[:36], groups=4)  # C % 8
+    with pytest.raises(ValueError):
+        norm.group_norm(x.transpose(1, 2), v, v)  # not contiguous
+    with pytest.raises(ValueError):
+        norm.group_norm(x, v.cpu(), v)
+    with pytest.raises(ValueError):
+        norm.group_norm(x, v, v.float())  # gamma and beta of two dtypes
+    with pytest.raises(RuntimeError):
+        norm.group_norm(x.float().requires_grad_(True), v.float(), v.float())
+    assert norm.group_norm.launches == before
 
 
 @pytest.mark.cuda
