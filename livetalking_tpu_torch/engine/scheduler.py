@@ -69,12 +69,10 @@ class AvatarStore:
         self.dtype = np.dtype(dtype)
         self.device = torch.device(device)
         self._cycles: Dict[str, Tuple[int, int]] = {}  # id -> (offset, length)
-        self._host_parts: List[np.ndarray] = []
         self._total = 0
         self._device_buffer: Optional[torch.Tensor] = None
         # auxiliary per-item device planes, indexed by the SAME global
         # index as the main cycle (e.g. the paste-back's full frames/boxes)
-        self._aux_parts: Dict[str, List[np.ndarray]] = {}
         self._aux_dev: Dict[str, torch.Tensor] = {}
         self._lock = threading.Lock()
 
@@ -85,44 +83,42 @@ class AvatarStore:
         ``aux`` maps plane name -> (N, ...) array packed alongside the
         cycle (same offsets, so one global index gathers all planes).
         Every add after the first must supply the same plane set with the
-        same trailing shapes."""
+        same trailing shapes. Only the new cycle crosses to the device: the
+        packed tensors are extended there, as new tensors, so a step still
+        running keeps reading the ones it was given."""
         with self._lock:
             if avatar_id in self._cycles:
                 return self._cycles[avatar_id]
             if cycle.dtype != self.dtype or cycle.shape[1:] != self.item_shape:
                 raise ValueError(f"cycle {cycle.dtype}{cycle.shape} does not match the "
                                  f"store's {self.dtype}{self.item_shape}")
-            aux = aux or {}
-            if self._host_parts and set(aux) != set(self._aux_parts):
+            aux = {k: np.ascontiguousarray(v) for k, v in (aux or {}).items()}
+            if self._total and set(aux) != set(self._aux_dev):
                 raise ValueError(
                     f"store aux planes {sorted(aux)} do not match the "
-                    f"registered set {sorted(self._aux_parts)}")
+                    f"registered set {sorted(self._aux_dev)}")
             for k, v in aux.items():
-                v = np.asarray(v)
                 if v.shape[0] != cycle.shape[0]:
                     raise ValueError(
                         f"aux plane {k!r} length {v.shape[0]} != cycle "
                         f"length {cycle.shape[0]}")
-                prev = self._aux_parts.get(k)
-                if prev and prev[0].shape[1:] != v.shape[1:]:
+                prev = self._aux_dev.get(k)
+                if prev is not None and tuple(prev.shape[1:]) != v.shape[1:]:
                     raise ValueError(
                         f"aux plane {k!r} item shape {v.shape[1:]} != "
-                        f"registered {prev[0].shape[1:]}")
+                        f"registered {tuple(prev.shape[1:])}")
             offset = self._total
-            self._host_parts.append(cycle)
             self._total += cycle.shape[0]
             self._cycles[avatar_id] = (offset, cycle.shape[0])
-            self._device_buffer = torch.from_numpy(
-                np.concatenate(self._host_parts, axis=0)).to(self.device)
+            self._device_buffer = self._extend(self._device_buffer, cycle)
             # a new dict, swapped in whole: a step running meanwhile reads
             # ``aux`` without the lock and must see planes of one length
-            aux_dev = dict(self._aux_dev)
-            for k, v in aux.items():
-                self._aux_parts.setdefault(k, []).append(np.asarray(v))
-                aux_dev[k] = torch.from_numpy(
-                    np.concatenate(self._aux_parts[k], axis=0)).to(self.device)
-            self._aux_dev = aux_dev
+            self._aux_dev = {k: self._extend(self._aux_dev.get(k), v) for k, v in aux.items()}
             return offset, cycle.shape[0]
+
+    def _extend(self, packed: Optional[torch.Tensor], part: np.ndarray) -> torch.Tensor:
+        new = torch.from_numpy(np.ascontiguousarray(part)).to(self.device)
+        return new if packed is None else torch.cat([packed, new])
 
     def lookup(self, avatar_id: str) -> Tuple[int, int]:
         return self._cycles[avatar_id]

@@ -10,12 +10,14 @@ Per step it is one host->device copy of the raw PCM window followed by
 framing, ``torch.fft.rfft`` and one matmul on the session's device; the
 (B, 80, 16) window batch the Wav2Lip audio encoder consumes stays there.
 ``mel_chunk_starts`` reproduces the reference's overlapping 16-step window
-slicing.
+slicing. ``make_mel_chunks_fn.requests`` counts, over the process, the
+requests the front-end served (one per feature batch of B windows).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 
 import numpy as np
 import torch
@@ -166,6 +168,12 @@ def make_mel_chunks_fn(
         if tuple(audio.shape) != (n_samples,):
             raise ValueError(f"mel window: got {tuple(audio.shape)}, want ({n_samples},)")
         mel = melspectrogram(audio, cfg)  # (80, F)
+        with _count_lock:
+            make_mel_chunks_fn.requests += 1
         return mel[:, window_cols].permute(1, 0, 2).contiguous()  # (B, 80, 16)
 
     return mel_chunks
+
+
+_count_lock = threading.Lock()
+make_mel_chunks_fn.requests = 0
